@@ -1,0 +1,149 @@
+"""Build, load and count the port's CUDA kernels.
+
+The sources in ``csrc/`` are compiled with ``nvcc`` for ``sm_90a`` into
+shared libraries with a plain C interface, one library per ``.cu`` file,
+all compiled at once on first use into ``build/kateth_tpu_torch/<hash>/``
+beside the package (the hash covers every source file, so an edited source
+builds anew).  The libraries are loaded with ctypes.  A failed build raises;
+nothing falls back to the plain path.
+
+``LAUNCHES`` counts the kernel launches: each wrapper adds one where it
+launches its kernel, so a run can show which kernels its path went through.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+
+import torch
+
+PKG_DIR = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(PKG_DIR, "csrc")
+BUILD_ROOT = os.path.join(os.path.dirname(PKG_DIR), "build", "kateth_tpu_torch")
+
+#: library name -> its source in csrc/
+LIBRARIES = {"kernels": "kernels.cu", "miller": "miller.cu", "hard_part": "hard_part.cu"}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_int64
+
+#: kernel -> (library, C launcher, its argument types before the stream)
+KERNELS = {
+    "mont_mul": ("kernels", "kateth_mont_mul", [_I, _P, _P, _P, _L]),
+    "pow_chain": ("kernels", "kateth_pow_chain", [_I, _P, _P, _L, _P, _I]),
+    "g1_ladder": ("kernels", "kateth_g1_ladder", [_P, _P, _P, _P, _P, _P, _P, _L]),
+    "miller": ("miller", "kateth_miller", [_P, _P, _P, _P, _P, _L]),
+    "hard_part": ("hard_part", "kateth_hard_part", [_P, _P, _L]),
+}
+
+#: launches per kernel since the last reset_launch_counts()
+LAUNCHES = {name: 0 for name in KERNELS}
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def source_hash() -> str:
+    h = hashlib.sha256()
+    for name in sorted(os.listdir(CSRC)):
+        with open(os.path.join(CSRC, name), "rb") as f:
+            h.update(name.encode() + b"\0" + f.read())
+    return h.hexdigest()[:16]
+
+
+def build_dir() -> str:
+    return os.path.join(BUILD_ROOT, source_hash())
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def build_all() -> float:
+    """Compile every library that is not built yet, all nvcc processes at
+    once.  Returns the seconds spent; raises RuntimeError on any failure."""
+    out_dir = build_dir()
+    todo = [
+        name for name in LIBRARIES if not os.path.exists(os.path.join(out_dir, f"lib{name}.so"))
+    ]
+    if not todo:
+        return 0.0
+    nvcc = _nvcc()
+    os.makedirs(out_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    procs = []
+    for name in todo:
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+        os.close(fd)
+        cmd = [
+            nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+            "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-I", CSRC,
+            "-o", tmp, os.path.join(CSRC, LIBRARIES[name]),
+        ]
+        procs.append((name, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    failures = []
+    for name, tmp, proc in procs:
+        log, _ = proc.communicate()
+        with open(os.path.join(out_dir, f"lib{name}.log"), "w") as f:
+            f.write(log)
+        if proc.returncode != 0:
+            failures.append(f"{LIBRARIES[name]}:\n{log}")
+            os.unlink(tmp)
+        else:
+            os.replace(tmp, os.path.join(out_dir, f"lib{name}.so"))
+    if failures:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
+    return time.perf_counter() - t0
+
+
+@functools.cache
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library `name`, built first if needed."""
+    build_all()
+    lib = ctypes.CDLL(os.path.join(build_dir(), f"lib{name}.so"))
+    for lib_name, fn, argtypes in KERNELS.values():
+        if lib_name == name:
+            getattr(lib, fn).argtypes = [*argtypes, _P]
+            getattr(lib, fn).restype = ctypes.c_int
+    lib.kateth_error_string.argtypes = [ctypes.c_int]
+    lib.kateth_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check_cuda(*tensors: torch.Tensor) -> None:
+    """Every operand of a launch: on one CUDA device, int64, contiguous."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev or t.device.type != "cuda":
+            raise ValueError("kernel operands must share one CUDA device")
+        if t.dtype != torch.int64:
+            raise TypeError(f"kernel operands are int64 digit planes, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError("kernel operands must be contiguous")
+
+
+def launch(kernel: str, device: torch.device, *args) -> None:
+    """Call `kernel`'s C launcher on `device`'s current stream, raise on a
+    launch error, and count the launch."""
+    lib_name, fn, _ = KERNELS[kernel]
+    lib = library(lib_name)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = getattr(lib, fn)(*args, stream)
+    if err != 0:
+        msg = lib.kateth_error_string(err).decode()
+        raise RuntimeError(f"CUDA kernel {kernel} failed to launch: {msg} ({err})")
+    LAUNCHES[kernel] += 1

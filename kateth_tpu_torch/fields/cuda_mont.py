@@ -1,0 +1,122 @@
+"""Wrappers for the field kernels K1-K3, each beside its plain version.
+
+On a CUDA tensor a wrapper launches its kernel (csrc/kernels.cu) or raises;
+on a CPU tensor it runs the plain PyTorch version, which computes the same
+canonical digits.  Operands keep the digit-plane layout (..., D); the
+kernels read and write it directly, so a wrapper only broadcasts, makes
+the operands contiguous and allocates the output.
+
+  K1 mont_mul    -> kateth_tpu/fields/pallas_mont.py::_mont_mul_flat
+  K2 pow_chain   -> pallas_mont.py::_pow_chain_flat
+  K3 g1_ladder   -> pallas_mont.py::_g1_ladder_flat
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from .. import cuda_lib
+from . import limbs as L
+from .specs import FP, FR
+
+
+def _field_id(spec: L.FieldSpec) -> int:
+    if spec is FR:
+        return 0
+    if spec is FP:
+        return 1
+    raise ValueError(f"no kernel for field {spec.name}")
+
+
+def _check_digits(spec: L.FieldSpec, shape) -> None:
+    if len(shape) == 0 or shape[-1] != spec.n_digits:
+        raise ValueError(f"{spec.name} operands are (..., {spec.n_digits}) digit planes")
+
+
+# --- K1 ---------------------------------------------------------------------
+
+def mont_mul_plain(spec: L.FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Montgomery product by digit convolution and reduction."""
+    return L.mont_reduce(spec, L._conv_digits(spec, a, b))
+
+
+def mont_mul(spec: L.FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched Montgomery product a b R^-1 mod N."""
+    if a.device.type == "cpu" and b.device.type == "cpu":
+        return mont_mul_plain(spec, a, b)
+    shape = torch.broadcast_shapes(a.shape, b.shape)
+    _check_digits(spec, shape)
+    a = a.expand(shape).contiguous()
+    b = b.expand(shape).contiguous()
+    out = torch.empty(shape, dtype=torch.int64, device=a.device)
+    cuda_lib.check_cuda(a, b, out)
+    lanes = math.prod(shape[:-1])
+    if lanes:
+        cuda_lib.launch(
+            "mont_mul", a.device, _field_id(spec), a.data_ptr(), b.data_ptr(), out.data_ptr(), lanes
+        )
+    return out
+
+
+# --- K2 ---------------------------------------------------------------------
+
+def pow_const_plain(spec: L.FieldSpec, a: torch.Tensor, e: int) -> torch.Tensor:
+    """a^e (e >= 1) by MSB-first square-and-multiply over the bits of e."""
+    acc = a
+    for bit in bin(e)[3:]:
+        acc = mont_mul_plain(spec, acc, acc)
+        if bit == "1":
+            acc = mont_mul_plain(spec, acc, a)
+    return acc
+
+
+def pow_const(spec: L.FieldSpec, a: torch.Tensor, e: int) -> torch.Tensor:
+    """a^e for a static exponent 1 <= e < 2^512 (Montgomery in and out)."""
+    if not 1 <= e < 1 << 512:
+        raise ValueError("pow_const takes 1 <= e < 2^512")
+    if a.device.type == "cpu":
+        return pow_const_plain(spec, a, e)
+    _check_digits(spec, a.shape)
+    a = a.contiguous()
+    out = torch.empty_like(a)
+    cuda_lib.check_cuda(a, out)
+    words = (ctypes.c_uint32 * 16)(*[(e >> (32 * k)) & 0xFFFFFFFF for k in range(16)])
+    lanes = math.prod(a.shape[:-1])
+    if lanes:
+        cuda_lib.launch(
+            "pow_chain", a.device, _field_id(spec), a.data_ptr(), out.data_ptr(), lanes,
+            ctypes.cast(words, ctypes.c_void_p), e.bit_length(),
+        )
+    return out
+
+
+# --- K3 ---------------------------------------------------------------------
+
+def g1_scalar_mul_plain(point, scalar_digits: torch.Tensor):
+    """The plain double-and-add ladder over all 256 scalar bits."""
+    from ..curves import ops
+
+    return ops.scalar_mul(ops.FP_FIELD, point, scalar_digits, n_bits=256)
+
+
+def g1_scalar_mul(point, scalar_digits: torch.Tensor):
+    """Per-lane G1 scalar multiply: point is a projective tuple of (..., 24)
+    Montgomery coordinates, scalar_digits (..., 16) PLAIN Fr digits; all 256
+    bits are walked MSB first (a leading zero bit doubles the identity)."""
+    if scalar_digits.device.type == "cpu":
+        return g1_scalar_mul_plain(point, scalar_digits)
+    batch = torch.broadcast_shapes(scalar_digits.shape[:-1], *(c.shape[:-1] for c in point))
+    pts = [c.expand(*batch, FP.n_digits).contiguous() for c in point]
+    sc = scalar_digits.expand(*batch, FR.n_digits).contiguous()
+    outs = [torch.empty_like(pts[0]) for _ in range(3)]
+    cuda_lib.check_cuda(*pts, sc, *outs)
+    lanes = math.prod(batch)
+    if lanes:
+        cuda_lib.launch(
+            "g1_ladder", sc.device, *(t.data_ptr() for t in pts), sc.data_ptr(),
+            *(t.data_ptr() for t in outs), lanes,
+        )
+    return tuple(outs)

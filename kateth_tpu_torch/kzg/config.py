@@ -1,0 +1,32 @@
+"""Library configuration: the sizes of the setup and the batch quantum."""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+
+@dataclass(frozen=True)
+class KzgConfig:
+    #: field elements per blob (power of two)
+    n: int = 4096
+    #: number of G2 monomial points in the setup (only [tau]_2 is used)
+    g2_len: int = 65
+    #: canonical batch quantum: every batch pads up to a multiple of this
+    #: with weight-0, zero-blob, generator-point lanes, so the device path
+    #: sees a fixed set of shapes
+    canon_batch: int = 64
+
+    def __post_init__(self):
+        if self.n <= 0 or self.n & (self.n - 1):
+            raise ValueError("n must be a power of two")
+        if self.g2_len < 2:
+            raise ValueError("the setup needs at least [1]_2 and [tau]_2")
+        if self.canon_batch <= 0:
+            raise ValueError("canon_batch must be positive")
+
+    @property
+    def bytes_per_blob(self) -> int:
+        return 32 * self.n
+
+
+MAINNET = KzgConfig()

@@ -1,0 +1,74 @@
+"""The port stands alone: no module of kateth_tpu_torch, and neither
+chip_smoke.py nor tools/profile_torch_verify.py, imports jax or the JAX
+package; its entry points default to
+CUDA and refuse to run elsewhere unless the caller names the device."""
+
+import ast
+import os
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "kateth_tpu_torch")
+FORBIDDEN = ("jax", "jaxlib", "kateth_tpu")
+
+
+def _sources():
+    out = [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "tools", "profile_torch_verify.py")]
+    for root, _, files in os.walk(PKG):
+        out += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def _imported(path: str):
+    """Absolute module names imported by a source file, with relative
+    imports resolved against its package."""
+    package = os.path.relpath(path, REPO).split(os.sep)[:-1]
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom):
+            if node.level == 0:
+                yield node.module
+            elif node.level - 1 >= len(package):
+                yield "<beyond the package root>"
+            else:
+                base = package[: len(package) - (node.level - 1)]
+                if node.module:
+                    yield ".".join(base + [node.module])
+                else:
+                    for alias in node.names:
+                        yield ".".join(base + [alias.name])
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: os.path.relpath(p, REPO))
+def test_no_jax_or_reference_imports(path):
+    for name in _imported(path):
+        top = name.split(".")[0]
+        assert top not in FORBIDDEN, f"{path} imports {name}"
+        assert name != "<beyond the package root>", f"{path} imports past the package root"
+
+
+def test_import_walk_sees_relative_imports():
+    names = set(_imported(os.path.join(PKG, "kzg", "api.py")))
+    assert "kateth_tpu_torch.host" in names and "kateth_tpu_torch.kzg.protocol" in names
+
+
+def test_load_json_defaults_to_cuda(tmp_path, monkeypatch):
+    """With no CUDA device, device=None raises instead of running on the
+    CPU (it fails before reading the file)."""
+    from kateth_tpu_torch.kzg import Kzg
+    from kateth_tpu_torch.kzg.setup import TorchSetup
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    missing = str(tmp_path / "no_such_setup.json")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Kzg.load_json(missing)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TorchSetup.load_json(missing, device=None)
+    with pytest.raises(FileNotFoundError):
+        Kzg.load_json(missing, device="cpu")
