@@ -4,16 +4,25 @@
 Phases, one line each; any failure exits non-zero before the last line:
 
 1. device: the card's name and power limit (nvidia-smi); no CUDA -> fail.
-2. build: compile the five CUDA kernels from kateth_tpu_torch/csrc.
-3. kernels: each kernel at the verify path's shapes, held bit for bit
-   against its plain PyTorch version on the same inputs on the card, with
-   the median time of each (CUDA events, after a warm-up).
-4. main path: Kzg.load_json of the mainnet setup on the card, then every
-   vendored verify_blob_kzg_proof_batch and verify_blob_kzg_proof vector
-   (true/false must match, `output: null` must raise KzgError), then a few
-   64-blob batches through verify_blob_kzg_proof_batches (proofs/s, for
-   information).  The launch counters are zeroed just before and read just
-   after; every kernel must have launched.
+2. build: compile the CUDA kernels from kateth_tpu_torch/csrc, one nvcc
+   process per source, all at once.
+3. kernels: each of the eight kernels at its main-path shape, held bit for
+   bit against its plain PyTorch version on the same inputs on the card,
+   with the median time of each (CUDA events, after a warm-up).
+4. paths, each run with the launch counters zeroed just before and read
+   just after, each required to launch its own kernels:
+   - batch verify: Kzg.load_json of the mainnet setup, every vendored
+     verify_blob_kzg_proof_batch and verify_blob_kzg_proof vector, then
+     64-blob batches through verify_blob_kzg_proof_batches (proofs/s, for
+     information);
+   - single-point verify: every verify_kzg_proof vector;
+   - commit and prove with the default comb (comb_h = 12): the first
+     commit, which builds the comb table (seconds, peak memory), every
+     blob_to_kzg_commitment, compute_kzg_proof and compute_blob_kzg_proof
+     vector, and one 64-blob blobs_to_kzg_commitments (commitments/s);
+   - commit with the windowed Pippenger (comb_h = 0): every
+     blob_to_kzg_commitment vector.
+   A vector's output must match; `output: null` must raise KzgError.
 5. the kernels JSON line, the nvidia-smi line, and the result line.
 
 Run from the repository root: python3 chip_smoke.py
@@ -51,14 +60,22 @@ def log(msg: str) -> None:
 
 def parse_vector(path: str) -> dict:
     """The fixed data.yaml layout of tests/vectors: `input:` with scalar
-    or list fields of quoted hex strings, then `output:`."""
+    or list fields of quoted hex strings, then `output:`: a boolean, null,
+    a hex string or a list of hex strings."""
     inp, out, key = {}, None, None
     with open(path) as f:
         for line in f:
             line = line.rstrip("\n")
             if line.startswith("output:"):
                 v = line.split(":", 1)[1].strip()
-                out = {"true": True, "false": False, "null": None}[v]
+                if v == "":  # a list of hex strings follows
+                    out = []
+                elif v in ("true", "false", "null"):
+                    out = {"true": True, "false": False, "null": None}[v]
+                else:
+                    out = bytes.fromhex(v.strip("'")[2:])
+            elif line.startswith("- "):
+                out.append(bytes.fromhex(line[2:].strip("'")[2:]))
             elif line.startswith("  - "):
                 inp[key].append(bytes.fromhex(line[4:].strip("'")[2:]))
             elif line.startswith("  ") and ":" in line:
@@ -114,6 +131,7 @@ def max_abs_err(got, want) -> int:
 
 def kernel_phases(dev, smi: str) -> list[dict]:
     from kateth_tpu_torch import cuda_pairing, host
+    from kateth_tpu_torch.curves import cuda_msm
     from kateth_tpu_torch.curves import g1 as g1mod
     from kateth_tpu_torch.curves import g2 as g2mod
     from kateth_tpu_torch.curves import ops
@@ -213,71 +231,177 @@ def kernel_phases(dev, smi: str) -> list[dict]:
     record("hard_part", "kateth_tpu_torch/csrc/hard_part.cu", "kateth_tpu/pallas_pairing.py:435",
            lambda: cuda_pairing.hard_part(f), lambda: cuda_pairing.hard_part_plain(f),
            5, 1, 2 * 288 * 8, hard_muls * MULS_FP)
+
+    # K6 at the single lane of verify_kzg_proof: z (-G2), 256 steps of a
+    # doubling (8 Fp2 products) and an addition (12), 3 Fp products each
+    neg_g2 = ops.pneg(ops.FP2_FIELD, tuple(torch.as_tensor(c[None]).to(dev) for c in g2mod.GENERATOR))
+    z = torch.as_tensor(L.int_to_digits(int.from_bytes(rng.bytes(32), "big") % host.R, 16)[None]).to(dev)
+    record("g2_ladder", "kateth_tpu_torch/csrc/g2_ladder.cu", "kateth_tpu/pallas_pairing.py:344",
+           lambda: cuda_pairing.g2_scalar_mul(neg_g2, z),
+           lambda: cuda_pairing.g2_scalar_mul_plain(neg_g2, z),
+           5, 1, (6 * 48 + 16) * 8, 256 * 20 * 3 * MULS_FP)
+
+    # K7 at one window of the 64-blob windowed commit: 64 x 4096 sorted
+    # points in 32,768 chains of 8 additions (12 products each)
+    src = "kateth_tpu_torch/csrc/msm.cu"
+    P = tuple(torch.as_tensor(np.resize(c, (64, 4096, 24))).to(dev) for c in g1mod.from_ints(pts))
+    lanes = 64 * 4096
+    record("prefix_scan", src, "kateth_tpu/curves/pallas_msm.py:87",
+           lambda: cuda_msm.chain_prefix(P, cuda_msm.CHAIN),
+           lambda: cuda_msm.chain_prefix_plain(P, cuda_msm.CHAIN),
+           10, 2, 2 * 3 * lanes * 24 * 8, lanes * 12 * MULS_FP)
+
+    # K8 at one column of the 64-blob comb commit: 64 x 4096 gathered
+    # affine rows (about one in a hundred the identity) in 8,192 chains of
+    # 32 mixed additions (11 products each)
+    aff = [host.jac_to_affine(host.FP_OPS, p) for p in pts]
+    ax = np.resize(np.stack([FP.from_int(a[0]) for a in aff]), (64, 4096, 24))
+    ay = np.resize(np.stack([FP.from_int(a[1]) for a in aff]), (64, 4096, 24))
+    flags = rng.random((64, 4096)) > 0.01
+    ax = torch.as_tensor(np.where(flags[..., None], ax, 0)).to(dev)
+    ay = torch.as_tensor(np.where(flags[..., None], ay, FP.one_mont)).to(dev)
+    flags = torch.as_tensor(flags).to(dev)
+    chains = lanes // cuda_msm.COMB_CHAIN
+    record("comb_chain_sum", src, "kateth_tpu/curves/pallas_msm.py:138",
+           lambda: cuda_msm.comb_chain_sum(ax, ay, flags),
+           lambda: cuda_msm.comb_chain_sum_plain(ax, ay, flags, cuda_msm.COMB_CHAIN),
+           10, 1, (2 * lanes * 24 + lanes + 3 * chains * 24) * 8, lanes * 11 * MULS_FP)
     return out
 
 
-def main_path(dev, smi: str) -> dict:
+#: the kernels each path of the run must launch
+PATH_KERNELS = {
+    "batch verify": ("mont_mul", "pow_chain", "g1_ladder", "miller", "hard_part"),
+    "single-point verify": ("g1_ladder", "miller", "hard_part", "g2_ladder"),
+    "commit and prove (comb_h = 12)": ("mont_mul", "pow_chain", "g1_ladder", "comb_chain_sum"),
+    "commit (comb_h = 0)": ("prefix_scan",),
+}
+
+
+def drive(path: str, fn, totals: dict) -> None:
+    """Run one path with the launch counters zeroed just before and read
+    just after; every kernel of the path must have launched."""
     from kateth_tpu_torch import cuda_lib
-    from kateth_tpu_torch.kzg import Kzg, KzgError
-    from kateth_tpu_torch.kzg.setup import DEFAULT_TRUSTED_SETUP
 
     cuda_lib.reset_launch_counts()
-    t0 = time.perf_counter()
-    kzg = Kzg.load_json(DEFAULT_TRUSTED_SETUP, device=dev)
+    fn()
     torch.cuda.synchronize()
-    log(f"main path: load_json {time.perf_counter() - t0:.2f} s")
+    launches = dict(cuda_lib.LAUNCHES)
+    log(f"path {path}: launches {launches}")
+    missing = [k for k in PATH_KERNELS[path] if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the {path} path: {missing}")
+    for k, v in launches.items():
+        totals[k] += v
 
-    def run(case, fn):
+
+def run_vectors(op: str, call) -> None:
+    """Every vendored vector of `op`: the output must match (bytes, a
+    [proof, y] pair or a verdict), and `output: null` must raise KzgError."""
+    from kateth_tpu_torch.kzg import KzgError
+
+    t0 = time.perf_counter()
+    names = sorted(os.listdir(os.path.join(VECTORS, op)))
+    for name in names:
+        case = parse_vector(os.path.join(VECTORS, op, name, "data.yaml"))
         want = case["output"]
         try:
-            got = fn()
+            got = call(case["input"])
         except KzgError:
             if want is not None:
-                raise
-            return
-        if want is None or got is not want:
-            raise AssertionError(f"expected {want}, got {got}")
-
-    t0 = time.perf_counter()
-    counts = {}
-    for op in ("verify_blob_kzg_proof_batch", "verify_blob_kzg_proof"):
-        names = sorted(os.listdir(os.path.join(VECTORS, op)))
-        for name in names:
-            case = parse_vector(os.path.join(VECTORS, op, name, "data.yaml"))
-            i = case["input"]
-            try:
-                if op == "verify_blob_kzg_proof":
-                    run(case, lambda: kzg.verify_blob_kzg_proof(
-                        i["blob"], i["commitment"], i["proof"]))
-                else:
-                    run(case, lambda: kzg.verify_blob_kzg_proof_batch(
-                        i["blobs"], i["commitments"], i["proofs"]))
-            except AssertionError as e:
-                raise AssertionError(f"{op}/{name}: {e}") from None
-        counts[op] = len(names)
-    log(f"main path: vectors pass {counts} in {time.perf_counter() - t0:.2f} s")
-
-    case = parse_vector(os.path.join(VECTORS, "verify_blob_kzg_proof_batch", "valid_true_4",
-                                     "data.yaml"))["input"]
-    batch = tuple(case[k] * 16 for k in ("blobs", "commitments", "proofs"))
-    if kzg.verify_blob_kzg_proof_batches([batch]) != [True]:
-        raise AssertionError("64-blob batch did not verify")
-    n_batches = 8
+                raise AssertionError(f"{op}/{name}: KzgError, expected {want}") from None
+            continue
+        if isinstance(got, tuple):
+            got = list(got)
+        if want is None or (got is not want if isinstance(want, bool) else got != want):
+            raise AssertionError(f"{op}/{name}: expected {want}, got {got}")
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    verdicts = kzg.verify_blob_kzg_proof_batches([batch] * n_batches)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    if verdicts != [True] * n_batches:
-        raise AssertionError(f"streaming verdicts {verdicts}")
-    log(f"main path: streaming {n_batches} x 64 blobs in {dt:.3f} s = "
-        f"{64 * n_batches / dt:.1f} proofs/s [{smi}]")
-    launches = dict(cuda_lib.LAUNCHES)
-    log(f"main path: launches {launches}")
-    missing = [k for k, v in launches.items() if v == 0]
-    if missing:
-        raise AssertionError(f"kernels not launched on the main path: {missing}")
-    return launches
+    log(f"vectors: {op}: {len(names)} pass in {time.perf_counter() - t0:.2f} s")
+
+
+def main_path(dev, smi: str) -> dict:
+    """Each path of the port through its public entry points at mainnet
+    width; returns the launches per kernel summed over the paths."""
+    from dataclasses import replace
+
+    from kateth_tpu_torch import cuda_lib
+    from kateth_tpu_torch.kzg import Kzg
+    from kateth_tpu_torch.kzg.setup import DEFAULT_TRUSTED_SETUP
+
+    totals = {k: 0 for k in cuda_lib.KERNELS}
+    holder = {}
+
+    def batch_verify():
+        t0 = time.perf_counter()
+        kzg = holder["kzg"] = Kzg.load_json(DEFAULT_TRUSTED_SETUP, device=dev)
+        torch.cuda.synchronize()
+        log(f"main path: load_json {time.perf_counter() - t0:.2f} s")
+        run_vectors("verify_blob_kzg_proof_batch",
+                    lambda i: kzg.verify_blob_kzg_proof_batch(i["blobs"], i["commitments"], i["proofs"]))
+        run_vectors("verify_blob_kzg_proof",
+                    lambda i: kzg.verify_blob_kzg_proof(i["blob"], i["commitment"], i["proof"]))
+        case = parse_vector(os.path.join(VECTORS, "verify_blob_kzg_proof_batch", "valid_true_4",
+                                         "data.yaml"))["input"]
+        batch = tuple(case[k] * 16 for k in ("blobs", "commitments", "proofs"))
+        if kzg.verify_blob_kzg_proof_batches([batch]) != [True]:
+            raise AssertionError("64-blob batch did not verify")
+        n_batches = 8
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        verdicts = kzg.verify_blob_kzg_proof_batches([batch] * n_batches)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if verdicts != [True] * n_batches:
+            raise AssertionError(f"streaming verdicts {verdicts}")
+        log(f"main path: streaming {n_batches} x 64 blobs in {dt:.3f} s = "
+            f"{64 * n_batches / dt:.1f} proofs/s [{smi}]")
+
+    def single_verify():
+        kzg = holder["kzg"]
+        run_vectors("verify_kzg_proof",
+                    lambda i: kzg.verify_kzg_proof(i["proof"], i["commitment"], i["z"], i["y"]))
+
+    def commit_comb():
+        kzg = holder["kzg"]
+        case = parse_vector(os.path.join(VECTORS, "blob_to_kzg_commitment", "valid_0", "data.yaml"))
+        blob = case["input"]["blob"]
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        if kzg.blob_to_kzg_commitment(blob) != case["output"]:
+            raise AssertionError("first commitment differs from the vector")
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        rows = kzg.config.n << kzg.config.comb_h
+        log(f"commit: first commit (comb table of {rows} rows built, then one 64-lane commit) "
+            f"{first:.2f} s, peak device memory {peak:.2f} GiB [{smi}]")
+        run_vectors("blob_to_kzg_commitment", lambda i: kzg.blob_to_kzg_commitment(i["blob"]))
+        run_vectors("compute_kzg_proof", lambda i: kzg.compute_kzg_proof(i["blob"], i["z"]))
+        run_vectors("compute_blob_kzg_proof",
+                    lambda i: kzg.compute_blob_kzg_proof(i["blob"], i["commitment"]))
+        blobs = [blob] * 64
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = kzg.blobs_to_kzg_commitments(blobs)
+            times.append(time.perf_counter() - t0)
+            if out != [case["output"]] * 64:
+                raise AssertionError("64-blob commitments differ from the vector")
+        dt = statistics.median(times)
+        log(f"commit: 64-blob blobs_to_kzg_commitments {dt:.3f} s (median of 3) = "
+            f"{64 / dt:.1f} commitments/s [{smi}]")
+
+    def commit_msm():
+        base = holder["kzg"]
+        kzg = Kzg(replace(base.setup, config=replace(base.config, comb_h=0)))
+        run_vectors("blob_to_kzg_commitment", lambda i: kzg.blob_to_kzg_commitment(i["blob"]))
+
+    drive("batch verify", batch_verify, totals)
+    drive("single-point verify", single_verify, totals)
+    drive("commit and prove (comb_h = 12)", commit_comb, totals)
+    drive("commit (comb_h = 0)", commit_msm, totals)
+    return totals
 
 
 def main() -> int:

@@ -1,0 +1,158 @@
+// G1 (over Fp) complete projective point formulas for one CUDA thread.
+//
+// RCB16 Algorithms 7 and 9 with a = 0, 3b = 12, in the grouping of
+// curves/ops.py::padd and pdouble, so every result is the same projective
+// representative the plain PyTorch formulas give.  Shared by the G1 ladder
+// (kernels.cu) and the MSM kernels (msm.cu).
+
+#pragma once
+
+#include "field.cuh"
+
+namespace kt {
+
+struct G1 {
+  uint32_t x[12], y[12], z[12];
+};
+
+__device__ __forceinline__ G1 g1_identity() {  // (0 : 1 : 0)
+  G1 r;
+  fzero<FpField>(r.x);
+  fone<FpField>(r.y);
+  fzero<FpField>(r.z);
+  return r;
+}
+
+__device__ __forceinline__ G1 g1_load(const int64_t* x, const int64_t* y, const int64_t* z) {
+  G1 r;
+  load_digits<FpField>(r.x, x);
+  load_digits<FpField>(r.y, y);
+  load_digits<FpField>(r.z, z);
+  return r;
+}
+
+__device__ __forceinline__ void g1_store(int64_t* x, int64_t* y, int64_t* z, const G1& p) {
+  store_digits<FpField>(x, p.x);
+  store_digits<FpField>(y, p.y);
+  store_digits<FpField>(z, p.z);
+}
+
+__device__ __forceinline__ void mul12(uint32_t* r, const uint32_t* a) {
+  uint32_t a2[12], a4[12], a8[12];
+  fadd<FpField>(a2, a, a);
+  fadd<FpField>(a4, a2, a2);
+  fadd<FpField>(a8, a4, a4);
+  fadd<FpField>(r, a8, a4);
+}
+
+// RCB16 Algorithm 9 (a = 0), the grouping of curves/ops.py::pdouble
+__device__ __forceinline__ G1 g1_double(const G1& p) {
+  using Fp = FpField;
+  uint32_t a[12], bb[12], c[12], d[12], e[12], t2[12], a8[12], t0[12], y3a[12];
+  fmul<Fp>(a, p.y, p.y);
+  fmul<Fp>(bb, p.y, p.z);
+  fmul<Fp>(c, p.z, p.z);
+  fmul<Fp>(d, p.x, p.y);
+  mul12(e, c);
+  fadd<Fp>(t2, e, e);
+  fadd<Fp>(t2, t2, e);  // 3 b3 Z^2
+  fadd<Fp>(a8, a, a);
+  fadd<Fp>(a8, a8, a8);
+  fadd<Fp>(a8, a8, a8);  // 8 Y^2
+  fsub<Fp>(t0, a, t2);
+  fadd<Fp>(y3a, a, e);
+  uint32_t n0[12], n1[12], n2[12], n3[12];
+  fmul<Fp>(n0, t0, d);
+  fmul<Fp>(n1, e, a8);
+  fmul<Fp>(n2, t0, y3a);
+  fmul<Fp>(n3, bb, a8);
+  G1 r;
+  fadd<Fp>(r.x, n0, n0);
+  fadd<Fp>(r.y, n1, n2);
+  fcopy<Fp>(r.z, n3);
+  return r;
+}
+
+// RCB16 Algorithm 7 (a = 0) after its six products m0..m5 =
+// X1X2, Y1Y2, Z1Z2, (X1+Y1)(X2+Y2), (Y1+Z1)(Y2+Z2), (X1+Z1)(X2+Z2)
+__device__ __forceinline__ G1 g1_add_tail(const uint32_t* m0, const uint32_t* m1,
+                                          const uint32_t* m2, const uint32_t* m3,
+                                          const uint32_t* m4, const uint32_t* m5) {
+  using Fp = FpField;
+  uint32_t s1[12], t3[12], t4[12], ty[12], t2[12], t0[12], z3[12], t1[12], y3[12];
+  fadd<Fp>(s1, m0, m1);
+  fsub<Fp>(t3, m3, s1);
+  fadd<Fp>(s1, m1, m2);
+  fsub<Fp>(t4, m4, s1);
+  fadd<Fp>(s1, m0, m2);
+  fsub<Fp>(ty, m5, s1);
+  mul12(t2, m2);
+  fadd<Fp>(t0, m0, m0);
+  fadd<Fp>(t0, t0, m0);  // 3 X1 X2
+  fadd<Fp>(z3, m1, t2);
+  fsub<Fp>(t1, m1, t2);
+  mul12(y3, ty);
+  uint32_t n0[12], n1[12], n2[12], n3[12], n4[12], n5[12];
+  fmul<Fp>(n0, t4, y3);
+  fmul<Fp>(n1, t3, t1);
+  fmul<Fp>(n2, y3, t0);
+  fmul<Fp>(n3, t1, z3);
+  fmul<Fp>(n4, t0, t3);
+  fmul<Fp>(n5, z3, t4);
+  G1 r;
+  fsub<Fp>(r.x, n1, n0);
+  fadd<Fp>(r.y, n3, n2);
+  fadd<Fp>(r.z, n5, n4);
+  return r;
+}
+
+// RCB16 Algorithm 7 (a = 0), the grouping of curves/ops.py::padd
+__device__ __forceinline__ G1 g1_add(const G1& p, const G1& q) {
+  using Fp = FpField;
+  uint32_t s1[12], s2[12], m0[12], m1[12], m2[12], m3[12], m4[12], m5[12];
+  fmul<Fp>(m0, p.x, q.x);
+  fmul<Fp>(m1, p.y, q.y);
+  fmul<Fp>(m2, p.z, q.z);
+  fadd<Fp>(s1, p.x, p.y);
+  fadd<Fp>(s2, q.x, q.y);
+  fmul<Fp>(m3, s1, s2);
+  fadd<Fp>(s1, p.y, p.z);
+  fadd<Fp>(s2, q.y, q.z);
+  fmul<Fp>(m4, s1, s2);
+  fadd<Fp>(s1, p.x, p.z);
+  fadd<Fp>(s2, q.x, q.z);
+  fmul<Fp>(m5, s1, s2);
+  return g1_add_tail(m0, m1, m2, m3, m4, m5);
+}
+
+// Algorithm 7 with q = (x2 : y2 : Z2), Z2 = flag ? 1 : 0 (Montgomery):
+// Z1 Z2 becomes a select, 11 products instead of 12, and the result is the
+// one g1_add gives for that q, since Z1 * 1 = Z1 exactly.  A clear flag
+// makes q the identity (the comb stores those rows as (0, 1)).
+// (pallas_mont.py::G1Vec.padd_mixed_flag)
+__device__ __forceinline__ G1 g1_add_mixed_flag(const G1& p, const uint32_t* x2,
+                                                const uint32_t* y2, bool flag) {
+  using Fp = FpField;
+  uint32_t z2[12], s1[12], s2[12], m0[12], m1[12], m2[12], m3[12], m4[12], m5[12];
+  if (flag) {
+    fone<Fp>(z2);
+    fcopy<Fp>(m2, p.z);
+  } else {
+    fzero<Fp>(z2);
+    fzero<Fp>(m2);
+  }
+  fmul<Fp>(m0, p.x, x2);
+  fmul<Fp>(m1, p.y, y2);
+  fadd<Fp>(s1, p.x, p.y);
+  fadd<Fp>(s2, x2, y2);
+  fmul<Fp>(m3, s1, s2);
+  fadd<Fp>(s1, p.y, p.z);
+  fadd<Fp>(s2, y2, z2);
+  fmul<Fp>(m4, s1, s2);
+  fadd<Fp>(s1, p.x, p.z);
+  fadd<Fp>(s2, x2, z2);
+  fmul<Fp>(m5, s1, s2);
+  return g1_add_tail(m0, m1, m2, m3, m4, m5);
+}
+
+}  // namespace kt

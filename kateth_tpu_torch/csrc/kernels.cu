@@ -10,7 +10,7 @@
 
 #include <cuda_runtime.h>
 
-#include "field.cuh"
+#include "g1.cuh"
 
 using namespace kt;
 
@@ -89,92 +89,9 @@ __global__ void __launch_bounds__(kThreads)
 // blocks of 128 threads run, on 3 of the 132 SMs: the kernel is latency
 // bound and leaves most of the card idle.
 // Design: one thread per lane, the point in registers, the complete RCB16
-// formulas of curves/ops.py (a = 0, 3b = 12) so the projective result is
+// formulas of g1.cuh (those of curves/ops.py) so the projective result is
 // bit-identical to the plain ladder; the lane's scalar bit selects the sum.
 // ---------------------------------------------------------------------------
-
-using Fp = FpField;
-
-struct G1 {
-  uint32_t x[12], y[12], z[12];
-};
-
-__device__ __forceinline__ void mul12(uint32_t* r, const uint32_t* a) {
-  uint32_t a2[12], a4[12], a8[12];
-  fadd<Fp>(a2, a, a);
-  fadd<Fp>(a4, a2, a2);
-  fadd<Fp>(a8, a4, a4);
-  fadd<Fp>(r, a8, a4);
-}
-
-// RCB16 Algorithm 9 (a = 0), the grouping of curves/ops.py::pdouble
-__device__ __forceinline__ G1 g1_double(const G1& p) {
-  uint32_t a[12], bb[12], c[12], d[12], e[12], t2[12], a8[12], t0[12], y3a[12];
-  fmul<Fp>(a, p.y, p.y);
-  fmul<Fp>(bb, p.y, p.z);
-  fmul<Fp>(c, p.z, p.z);
-  fmul<Fp>(d, p.x, p.y);
-  mul12(e, c);
-  fadd<Fp>(t2, e, e);
-  fadd<Fp>(t2, t2, e);  // 3 b3 Z^2
-  fadd<Fp>(a8, a, a);
-  fadd<Fp>(a8, a8, a8);
-  fadd<Fp>(a8, a8, a8);  // 8 Y^2
-  fsub<Fp>(t0, a, t2);
-  fadd<Fp>(y3a, a, e);
-  uint32_t n0[12], n1[12], n2[12], n3[12];
-  fmul<Fp>(n0, t0, d);
-  fmul<Fp>(n1, e, a8);
-  fmul<Fp>(n2, t0, y3a);
-  fmul<Fp>(n3, bb, a8);
-  G1 r;
-  fadd<Fp>(r.x, n0, n0);
-  fadd<Fp>(r.y, n1, n2);
-  fcopy<Fp>(r.z, n3);
-  return r;
-}
-
-// RCB16 Algorithm 7 (a = 0), the grouping of curves/ops.py::padd
-__device__ __forceinline__ G1 g1_add(const G1& p, const G1& q) {
-  uint32_t s1[12], s2[12], m0[12], m1[12], m2[12], m3[12], m4[12], m5[12];
-  fmul<Fp>(m0, p.x, q.x);
-  fmul<Fp>(m1, p.y, q.y);
-  fmul<Fp>(m2, p.z, q.z);
-  fadd<Fp>(s1, p.x, p.y);
-  fadd<Fp>(s2, q.x, q.y);
-  fmul<Fp>(m3, s1, s2);
-  fadd<Fp>(s1, p.y, p.z);
-  fadd<Fp>(s2, q.y, q.z);
-  fmul<Fp>(m4, s1, s2);
-  fadd<Fp>(s1, p.x, p.z);
-  fadd<Fp>(s2, q.x, q.z);
-  fmul<Fp>(m5, s1, s2);
-  uint32_t t3[12], t4[12], ty[12], t2[12], t0[12], z3[12], t1[12], y3[12];
-  fadd<Fp>(s1, m0, m1);
-  fsub<Fp>(t3, m3, s1);
-  fadd<Fp>(s1, m1, m2);
-  fsub<Fp>(t4, m4, s1);
-  fadd<Fp>(s1, m0, m2);
-  fsub<Fp>(ty, m5, s1);
-  mul12(t2, m2);
-  fadd<Fp>(t0, m0, m0);
-  fadd<Fp>(t0, t0, m0);  // 3 X1 X2
-  fadd<Fp>(z3, m1, t2);
-  fsub<Fp>(t1, m1, t2);
-  mul12(y3, ty);
-  uint32_t n0[12], n1[12], n2[12], n3[12], n4[12], n5[12];
-  fmul<Fp>(n0, t4, y3);
-  fmul<Fp>(n1, t3, t1);
-  fmul<Fp>(n2, y3, t0);
-  fmul<Fp>(n3, t1, z3);
-  fmul<Fp>(n4, t0, t3);
-  fmul<Fp>(n5, z3, t4);
-  G1 r;
-  fsub<Fp>(r.x, n1, n0);
-  fadd<Fp>(r.y, n3, n2);
-  fadd<Fp>(r.z, n5, n4);
-  return r;
-}
 
 __global__ void __launch_bounds__(kThreads)
     g1_ladder_kernel(const int64_t* __restrict__ px, const int64_t* __restrict__ py,
@@ -183,24 +100,16 @@ __global__ void __launch_bounds__(kThreads)
                      int64_t* __restrict__ oz, int64_t lanes) {
   int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= lanes) return;
-  G1 base;
-  load_digits<Fp>(base.x, px + i * 24);
-  load_digits<Fp>(base.y, py + i * 24);
-  load_digits<Fp>(base.z, pz + i * 24);
+  G1 base = g1_load(px + i * 24, py + i * 24, pz + i * 24);
   uint32_t s[8];  // plain scalar, 16 digits -> 8 limbs
   load_digits<FrField>(s, scalars + i * 16);
-  G1 acc;  // the identity (0 : 1 : 0)
-  fzero<Fp>(acc.x);
-  fone<Fp>(acc.y);
-  fzero<Fp>(acc.z);
+  G1 acc = g1_identity();
   for (int k = 255; k >= 0; --k) {
     acc = g1_double(acc);
     G1 sum = g1_add(acc, base);
     if ((s[k >> 5] >> (k & 31)) & 1u) acc = sum;
   }
-  store_digits<Fp>(ox + i * 24, acc.x);
-  store_digits<Fp>(oy + i * 24, acc.y);
-  store_digits<Fp>(oz + i * 24, acc.z);
+  g1_store(ox + i * 24, oy + i * 24, oz + i * 24, acc);
 }
 
 }  // namespace

@@ -1,5 +1,5 @@
-// Fp2 / Fp6 / Fp12 tower and the G2 (twist) point formulas for one CUDA
-// thread, over the Fp arithmetic of field.cuh.
+// Fp2 / Fp6 / Fp12 tower for one CUDA thread, over the Fp arithmetic of
+// field.cuh (the G2 point formulas built on it are in g2.cuh).
 //
 //   Fp2 = Fp[u]/(u^2+1), Fp6 = Fp2[v]/(v^3 - xi), Fp12 = Fp6[w]/(w^2 - v),
 //   xi = 1 + u.

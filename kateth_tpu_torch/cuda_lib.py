@@ -29,7 +29,13 @@ CSRC = os.path.join(PKG_DIR, "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(PKG_DIR), "build", "kateth_tpu_torch")
 
 #: library name -> its source in csrc/
-LIBRARIES = {"kernels": "kernels.cu", "miller": "miller.cu", "hard_part": "hard_part.cu"}
+LIBRARIES = {
+    "kernels": "kernels.cu",
+    "miller": "miller.cu",
+    "hard_part": "hard_part.cu",
+    "g2_ladder": "g2_ladder.cu",
+    "msm": "msm.cu",
+}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -42,6 +48,9 @@ KERNELS = {
     "g1_ladder": ("kernels", "kateth_g1_ladder", [_P, _P, _P, _P, _P, _P, _P, _L]),
     "miller": ("miller", "kateth_miller", [_P, _P, _P, _P, _P, _L]),
     "hard_part": ("hard_part", "kateth_hard_part", [_P, _P, _L]),
+    "g2_ladder": ("g2_ladder", "kateth_g2_ladder", [_P, _P, _P, _P, _P, _P, _P, _L]),
+    "prefix_scan": ("msm", "kateth_chain_prefix", [_P, _P, _P, _P, _P, _P, _L, _I]),
+    "comb_chain_sum": ("msm", "kateth_comb_chain_sum", [_P, _P, _P, _P, _P, _P, _L, _I]),
 }
 
 #: launches per kernel since the last reset_launch_counts()

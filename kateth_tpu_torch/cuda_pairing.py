@@ -1,11 +1,13 @@
-"""Wrappers for the pairing kernels K4 (Miller loop) and K5 (hard part of
-the final exponentiation), each beside its plain version.
+"""Wrappers for the pairing-module kernels K4 (Miller loop), K5 (hard part
+of the final exponentiation) and K6 (G2 ladder), each beside its plain
+version.
 
   K4 miller     -> kateth_tpu/pallas_pairing.py::_miller_flat
   K5 hard_part  -> kateth_tpu/pallas_pairing.py::_hard_part_flat
+  K6 g2_ladder  -> kateth_tpu/pallas_pairing.py::_g2_ladder_flat
 
-The kernels (csrc/miller.cu, csrc/hard_part.cu) read and write the digit
-plane layout directly: affine G1 coordinates (..., 24), affine twist
+The kernels (csrc/miller.cu, csrc/hard_part.cu, csrc/g2_ladder.cu) read and
+write the digit plane layout directly: G1 coordinates (..., 24), twist
 coordinates (..., 2, 24), Fp12 values (..., 2, 3, 2, 24), so a wrapper only
 broadcasts, makes the operands contiguous and allocates the output.  On a
 CPU tensor a wrapper runs the plain version instead.
@@ -21,7 +23,7 @@ from . import cuda_lib, host
 from .curves import ops
 from .fields import fp2, fp12
 from .fields.fp6 import fp2_mul_many
-from .fields.specs import FP
+from .fields.specs import FP, FR
 
 F2 = ops.FP2_FIELD
 X_ABS = -host.BLS_X  # 0xd201000000010000
@@ -169,3 +171,33 @@ def hard_part(f):
     if lanes:
         cuda_lib.launch("hard_part", f.device, f.data_ptr(), out.data_ptr(), lanes)
     return out
+
+
+# ---------------------------------------------------------------------------
+# K6: the G2 ladder
+# ---------------------------------------------------------------------------
+
+def g2_scalar_mul_plain(point, scalar_digits: torch.Tensor):
+    """The plain double-and-add ladder over all 256 scalar bits."""
+    return ops.scalar_mul(F2, point, scalar_digits, n_bits=256)
+
+
+def g2_scalar_mul(point, scalar_digits: torch.Tensor):
+    """Per-lane G2 scalar multiply: point is a projective tuple of
+    (..., 2, 24) Montgomery Fp2 coordinates, scalar_digits (..., 16) PLAIN
+    Fr digits; all 256 bits are walked MSB first."""
+    if scalar_digits.device.type == "cpu":
+        return g2_scalar_mul_plain(point, scalar_digits)
+    D = FP.n_digits
+    batch = torch.broadcast_shapes(scalar_digits.shape[:-1], *(c.shape[:-2] for c in point))
+    pts = [c.expand(*batch, 2, D).contiguous() for c in point]
+    sc = scalar_digits.expand(*batch, FR.n_digits).contiguous()
+    outs = [torch.empty_like(pts[0]) for _ in range(3)]
+    cuda_lib.check_cuda(*pts, sc, *outs)
+    lanes = math.prod(batch)
+    if lanes:
+        cuda_lib.launch(
+            "g2_ladder", sc.device, *(t.data_ptr() for t in pts), sc.data_ptr(),
+            *(t.data_ptr() for t in outs), lanes,
+        )
+    return tuple(outs)

@@ -1,0 +1,121 @@
+"""Wrappers for the commitment kernels K7 and K8, each beside its plain
+version.
+
+  K7 prefix_scan     -> kateth_tpu/curves/pallas_msm.py::_chunked_prefix_flat
+  K8 comb_chain_sum  -> kateth_tpu/curves/pallas_msm.py::_comb_chain_sum_flat
+
+Both kernels (csrc/msm.cu) give each thread one chain of g consecutive
+point rows of the digit plane layout (rows, 24) and add the chain's points
+in order with the complete formulas, so the plain versions, loops of
+ops.padd in the same order, give the same projective digits.  On a CPU
+tensor a wrapper runs the plain version instead.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import cuda_lib
+from ..fields.specs import FP
+from . import msm, ops
+
+F1 = ops.FP_FIELD
+
+#: points per chain of the windowed MSM's bucket scan
+CHAIN = 8
+#: comb rows per chain of the fixed-base commit
+COMB_CHAIN = 32
+
+
+def _chains(c: torch.Tensor, g: int) -> torch.Tensor:
+    """(..., N, 24) -> (..., N/g, g, 24)."""
+    if c.shape[-2] % g:
+        raise ValueError(f"the point axis ({c.shape[-2]}) is not a multiple of g = {g}")
+    return c.reshape(*c.shape[:-2], c.shape[-2] // g, g, FP.n_digits)
+
+
+# --- K7 ---------------------------------------------------------------------
+
+def chain_prefix_plain(p, g: int):
+    """Inclusive prefix sums within each chain of g consecutive points along
+    axis -2: acc = identity, acc += p_k, out_k = acc."""
+    chains = tuple(_chains(c, g) for c in p)
+    acc = ops.identity(F1, chains[0].shape[:-2], chains[0].device)
+    outs = []
+    for k in range(g):
+        acc = ops.padd(F1, acc, tuple(c[..., k, :] for c in chains))
+        outs.append(acc)
+    return tuple(torch.stack([o[i] for o in outs], dim=-2).reshape(p[i].shape) for i in range(3))
+
+
+def chain_prefix(p, g: int):
+    """Within-chain inclusive prefix sums (kernel K7 on a CUDA tensor):
+    p is a projective tuple of (..., N, 24) Montgomery coordinates."""
+    if p[0].device.type == "cpu":
+        return chain_prefix_plain(p, g)
+    pts = [c.contiguous() for c in p]
+    chains = _chains(pts[0], g).shape[:-2].numel()
+    outs = [torch.empty_like(c) for c in pts]
+    cuda_lib.check_cuda(*pts, *outs)
+    if chains:
+        cuda_lib.launch(
+            "prefix_scan", pts[0].device, *(t.data_ptr() for t in pts),
+            *(t.data_ptr() for t in outs), chains, g,
+        )
+    return tuple(outs)
+
+
+def prefix_scan_kernel(p):
+    """Inclusive prefix sum of G1 points along axis -2 by the two-level
+    scan: K7's sequential sums within chains of CHAIN points, a short
+    Hillis-Steele exclusive scan of the chain totals, and one offset add.
+    The point axis must be a power of two."""
+    n = p[0].shape[-2]
+    g = min(CHAIN, n)
+    within = tuple(_chains(c, g) for c in chain_prefix(p, g))  # (..., G, g, 24)
+    totals = tuple(w[..., g - 1, :] for w in within)  # (..., G, 24)
+    incl = msm.prefix_scan(F1, totals, axis=-2)
+    ident = ops.identity(F1, (), p[0].device)
+    excl = tuple(
+        torch.cat([i.expand(*t.shape[:-2], 1, FP.n_digits), t[..., :-1, :]], dim=-2)
+        for i, t in zip(ident, incl)
+    )
+    combined = ops.padd(F1, within, tuple(e[..., None, :].expand_as(w) for e, w in zip(excl, within)))
+    return tuple(c.reshape(p[0].shape) for c in combined)
+
+
+# --- K8 ---------------------------------------------------------------------
+
+def comb_chain_sum_plain(x: torch.Tensor, y: torch.Tensor, flags: torch.Tensor, g: int):
+    """Sum of each chain of g consecutive affine rows, a row whose flag is
+    clear being the identity: ops.padd with Z2 = flag ? 1 : 0."""
+    one = FP.tensor("one_mont", x.device)
+    z = torch.where(flags[..., None].bool(), one, 0)
+    rows = tuple(_chains(c, g) for c in (x, y, z))
+    acc = ops.identity(F1, rows[0].shape[:-2], x.device)
+    for k in range(g):
+        acc = ops.padd(F1, acc, tuple(c[..., k, :] for c in rows))
+    return acc
+
+
+def comb_chain_sum(x: torch.Tensor, y: torch.Tensor, flags: torch.Tensor, g: int = COMB_CHAIN):
+    """Chain sums of gathered comb rows (kernel K8 on a CUDA tensor).
+
+    x, y: (..., N, 24) affine Montgomery rows; flags: (..., N), nonzero for
+    a point.  Returns a projective tuple of (..., N/g, 24) chain totals."""
+    if y.shape != x.shape or flags.shape != x.shape[:-1]:
+        raise ValueError("comb_chain_sum takes x, y (..., N, 24) and flags (..., N)")
+    if x.device.type == "cpu":
+        return comb_chain_sum_plain(x, y, flags, g)
+    x, y = x.contiguous(), y.contiguous()
+    fl = flags.to(torch.int64).contiguous()
+    shape = _chains(x, g).shape[:-2]
+    outs = [torch.empty((*shape, FP.n_digits), dtype=torch.int64, device=x.device) for _ in range(3)]
+    cuda_lib.check_cuda(x, y, fl, *outs)
+    chains = shape.numel()
+    if chains:
+        cuda_lib.launch(
+            "comb_chain_sum", x.device, x.data_ptr(), y.data_ptr(), fl.data_ptr(),
+            *(t.data_ptr() for t in outs), chains, g,
+        )
+    return tuple(outs)

@@ -1,10 +1,22 @@
-"""The point sums of the verify path: an inclusive prefix scan of points
-and the sum of a batch of points (the windowed MSM is not ported yet)."""
+"""Point sums: the inclusive prefix scan, the sum of points along an axis,
+and the windowed Pippenger MSM of the commit path.
+
+The MSM keeps the bucket algebra of Pippenger without any scatter: per
+c-bit window the points are sorted by digit (a stable argsort), one
+inclusive prefix scan along the sorted axis (the two-level scan of
+cuda_msm, kernel K7) gives every bucket-boundary partial sum, and the
+weighted bucket sum telescopes into (2^c - 1) total - sum of the 2^c - 1
+boundary prefixes.  Windows combine MSB first with c doublings between.
+
+Sums of points halve pairwise (n - 1 additions); the JAX package's
+Hillis-Steele tree_sum does log2(n) times as many.
+"""
 
 from __future__ import annotations
 
 import torch
 
+from ..fields import limbs as L
 from . import ops
 from .ops import CurveField
 
@@ -30,18 +42,103 @@ def prefix_scan(F: CurveField, p, axis: int = 0):
     return p
 
 
-def tree_sum(F: CurveField, p, axis: int = 0):
-    """Sum points along `axis`: pad with identities to a power of two,
-    prefix-scan, take the last."""
-    n = p[0].shape[axis]
+def _pad_pot(F: CurveField, p, ax: int):
+    """Pad the point axis `ax` with identities to a power of two."""
+    n = p[0].shape[ax]
     pot = 1 if n <= 1 else 1 << (n - 1).bit_length()
+    if pot == n:
+        return p
+    ident = ops.identity(F, (), p[0].device)
+    padded = []
+    for i, a in zip(ident, p):
+        pad_shape = list(a.shape)
+        pad_shape[ax] = pot - n
+        padded.append(torch.cat([a, i.expand(pad_shape)], dim=ax))
+    return tuple(padded)
+
+
+def halving_sum(F: CurveField, p, axis: int):
+    """Sum of points along `axis` by pairwise halving (n - 1 additions in
+    log2(n) rounds), the length padded with identities to a power of two."""
     ax = axis % p[0].ndim
-    if pot != n:
-        ident = ops.identity(F, (), p[0].device)
-        padded = []
-        for i, a in zip(ident, p):
-            pad_shape = list(a.shape)
-            pad_shape[ax] = pot - n
-            padded.append(torch.cat([a, i.expand(pad_shape)], dim=ax))
-        p = tuple(padded)
-    return tuple(a.select(ax, pot - 1) for a in prefix_scan(F, p, axis=ax))
+    p = _pad_pot(F, p, ax)
+    n = p[0].shape[ax]
+    while n > 1:
+        n //= 2
+        p = ops.padd(F, tuple(c.narrow(ax, 0, n) for c in p), tuple(c.narrow(ax, n, n) for c in p))
+    return tuple(c.squeeze(ax) for c in p)
+
+
+def scalar_mul_const(F: CurveField, p, k: int):
+    """p k for a static k >= 0 by MSB-first double-and-add."""
+    if k == 0:
+        return ops.identity(F, p[0].shape[: p[0].ndim - F.fdim], p[0].device)
+    acc = p
+    for bit in bin(k)[3:]:
+        acc = ops.pdouble(F, acc)
+        if bit == "1":
+            acc = ops.padd(F, acc, p)
+    return acc
+
+
+def window_digits(scalar_digits: torch.Tensor, c: int, n_bits: int = 255) -> torch.Tensor:
+    """Plain Fr digit planes (..., 16) -> (W, ...) c-bit window values
+    (least significant window first), W = ceil(n_bits / c)."""
+    shifts = torch.arange(L.DIGIT_BITS, device=scalar_digits.device)
+    bits = (scalar_digits[..., :, None] >> shifts) & 1  # (..., 16, 16) LSB first
+    bits = bits.reshape(*scalar_digits.shape[:-1], -1)[..., :n_bits]
+    W = -(-n_bits // c)
+    bits = torch.nn.functional.pad(bits, (0, W * c - n_bits))
+    bits = bits.reshape(*bits.shape[:-1], W, c)
+    digits = (bits << torch.arange(c, device=bits.device)).sum(-1)  # (..., W)
+    return digits.movedim(-1, 0)
+
+
+def _window_sum(points, dig: torch.Tensor, c: int):
+    """Bucket sum of one window over G1: sum_i dig[..., i] points[i].
+
+    dig: (*batch, N) window digits; points: projective tuple of (N, 24),
+    shared by the batch.  Returns a projective tuple of (*batch, 24)."""
+    from . import cuda_msm
+
+    F = ops.FP_FIELD
+    B = 1 << c
+    batch = dig.shape[:-1]
+    order = torch.argsort(dig, dim=-1, stable=True)
+    sorted_digits = torch.take_along_dim(dig, order, dim=-1)
+    gathered = tuple(comp[order] for comp in points)  # (*batch, N, 24)
+    prefix = cuda_msm.prefix_scan_kernel(gathered)
+    total = tuple(a[..., -1, :] for a in prefix)
+
+    # c_j = #digits < j for j = 1 .. B-1; the boundary prefix is the one
+    # just before bucket j starts, the identity when no digit is below j
+    j = torch.arange(1, B, device=dig.device).expand(*batch, B - 1).contiguous()
+    c_j = torch.searchsorted(sorted_digits.contiguous(), j)
+    idx = (c_j - 1).clamp(min=0)[..., None]
+    boundary = tuple(torch.take_along_dim(a, idx, dim=-2) for a in prefix)
+    boundary = ops.pselect(F, c_j == 0, ops.identity(F, (*batch, B - 1), dig.device), boundary)
+
+    # window sum = (B - 1) total - sum_j boundary_j (telescoping)
+    gsum = halving_sum(F, boundary, axis=-2)
+    return ops.padd(F, scalar_mul_const(F, total, B - 1), ops.pneg(F, gsum))
+
+
+def msm(points, scalar_digits: torch.Tensor, c: int = 8):
+    """sum_i scalars[..., i] points[i] over G1, batched over the leading
+    scalar dims.
+
+    points: projective tuple of (N, 24), shared by the batch (the setup
+    table); scalar_digits: PLAIN Fr digits (*batch, N, 16).  Returns a
+    projective tuple of (*batch, 24).  One window at a time, MSB first."""
+    F = ops.FP_FIELD
+    N = points[0].shape[0]
+    batch = scalar_digits.shape[:-2]
+    points = _pad_pot(F, points, 0)  # identity points with zero digits
+    digits = window_digits(scalar_digits, c)  # (W, *batch, N)
+    digits = torch.nn.functional.pad(digits, (0, points[0].shape[0] - N))
+    acc = ops.identity(F, batch, digits.device)
+    for w in range(digits.shape[0] - 1, -1, -1):
+        for _ in range(c):
+            acc = ops.pdouble(F, acc)
+        acc = ops.padd(F, acc, _window_sum(points, digits[w], c))
+    return acc

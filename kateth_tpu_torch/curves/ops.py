@@ -46,7 +46,10 @@ class CurveField:
 
 
 def _stack_pairs(pairs):
-    shapes = [torch.broadcast_shapes(a.shape, b.shape) for a, b in pairs]
+    shapes = [
+        a.shape if a.shape == b.shape else torch.broadcast_shapes(a.shape, b.shape)
+        for a, b in pairs
+    ]
     lhs = torch.stack([a.expand(s) for (a, _), s in zip(pairs, shapes)])
     rhs = torch.stack([b.expand(s) for (_, b), s in zip(pairs, shapes)])
     return lhs, rhs

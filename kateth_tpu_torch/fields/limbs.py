@@ -297,6 +297,40 @@ def inv(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
     return pow_const(spec, a, spec.modulus - 2)
 
 
+def scan_mul(spec: FieldSpec, x: torch.Tensor, reverse: bool = False) -> torch.Tensor:
+    """Inclusive prefix (or suffix) products along axis -2, Hillis-Steele:
+    log2(n) rounds of one batched Montgomery multiply each."""
+    n = x.shape[-2]
+    one = spec.tensor("one_mont", x.device)
+    shift = 1
+    while shift < n:
+        ones = one.expand(*x.shape[:-2], shift, spec.n_digits)
+        if reverse:
+            shifted = torch.cat([x[..., shift:, :], ones], dim=-2)
+        else:
+            shifted = torch.cat([ones, x[..., : n - shift, :]], dim=-2)
+        x = mont_mul(spec, x, shifted)
+        shift *= 2
+    return x
+
+
+def batch_inv(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
+    """Montgomery's batched inversion along axis -2: one Fermat chain per
+    row plus prefix and suffix products.  Zeros pass through as zeros
+    (they count as one in the running products)."""
+    one = spec.tensor("one_mont", a.device)
+    zero_mask = is_zero(a)[..., None]
+    safe = torch.where(zero_mask, one, a)
+    prefix = scan_mul(spec, safe)
+    suffix = scan_mul(spec, safe, reverse=True)
+    total_inv = inv(spec, prefix[..., -1:, :])
+    ones = one.expand(*a.shape[:-2], 1, spec.n_digits)
+    prefix_shift = torch.cat([ones, prefix[..., :-1, :]], dim=-2)
+    suffix_shift = torch.cat([suffix[..., 1:, :], ones], dim=-2)
+    out = mont_mul(spec, mont_mul(spec, prefix_shift, suffix_shift), total_inv)
+    return torch.where(zero_mask, 0, out)
+
+
 def sum_mod(spec: FieldSpec, x: torch.Tensor, axis: int = -2) -> torch.Tensor:
     """Modular sum along `axis` by pairwise folding (power-of-two length)."""
     n = x.shape[axis]
@@ -319,3 +353,10 @@ def be_bytes_to_digits(spec: FieldSpec, b: torch.Tensor) -> torch.Tensor:
     pairs = b.to(torch.int64).reshape(*b.shape[:-1], D, 2)
     words = (pairs[..., 0] << 8) | pairs[..., 1]
     return words.flip(-1)
+
+
+def digits_to_be_bytes(spec: FieldSpec, d: torch.Tensor) -> torch.Tensor:
+    """(..., D) digit planes (plain form) -> (..., 2D) big-endian uint8."""
+    words = d.flip(-1)
+    pairs = torch.stack([(words >> 8) & 0xFF, words & 0xFF], dim=-1)
+    return pairs.reshape(*d.shape[:-1], 2 * spec.n_digits).to(torch.uint8)

@@ -1,4 +1,4 @@
-"""Batch blob-proof verification (EIP-4844 KZG) on PyTorch tensors."""
+"""EIP-4844 KZG commitments, proofs and their verification on PyTorch tensors."""
 
 from ..host import KzgError
 from .api import BYTES_PER_COMMITMENT, BYTES_PER_FIELD_ELEMENT, BYTES_PER_PROOF, Kzg

@@ -1,10 +1,13 @@
-"""Byte-level batch blob-proof verification.
+"""The byte-level KZG operations: commitments, proofs, single-point and
+batch blob-proof verification.
 
 Invalid encodings, non-canonical field elements and off-curve or
 out-of-subgroup points raise KzgError; `False` is returned only for an
 honest verification failure.  The host prefix (length checks, SHA-256
 Fiat-Shamir challenges, the batch challenge r and its weights) runs in
-Python; the rest runs on the setup's device.
+Python; the rest runs on the setup's device.  Every batched operation pads
+its batch to a multiple of config.canon_batch (zero blobs, generator
+points), so the device sees a fixed set of shapes.
 """
 
 from __future__ import annotations
@@ -15,6 +18,8 @@ import numpy as np
 import torch
 
 from .. import host
+from ..curves import compress, comb, decompress
+from ..fields.specs import FR
 from ..host import KzgError
 from . import protocol
 from .config import MAINNET, KzgConfig
@@ -31,10 +36,16 @@ _G1_GEN_BYTES = host.g1_compress(host.G1_GEN)
 class Kzg:
     """The library handle: a trusted setup on one device."""
 
+    #: blobs per commit: a larger batch commits in chunks of this many
+    commit_chunk = 64
+
     def __init__(self, setup: TorchSetup):
         self.setup = setup
         self.config = setup.config
         self.device = setup.device
+        #: the fixed-base comb table, built at the first commit (6.4 GB on
+        #: the card at mainnet), never for a caller who only verifies
+        self._comb_table = None
 
     @classmethod
     def load_json(
@@ -74,7 +85,163 @@ class Kzg:
             + joined_proofs
         )
 
+    # -- host codecs ----------------------------------------------------------
+
+    def _to_device(self, data: bytes, width: int) -> torch.Tensor:
+        arr = np.frombuffer(data, dtype=np.uint8).reshape(-1, width)
+        return torch.as_tensor(arr.copy()).to(self.device)
+
+    def _decode_blobs(self, blobs, pad_to: int | None = None):
+        """list[bytes] -> (plain element planes (B, N, 16), ok (B,)) on the
+        device.  Length errors raise here; canonicality comes back as a
+        mask.  With pad_to, zero blobs pad the batch; callers slice [:n]."""
+        nbytes = self.config.bytes_per_blob
+        for b in blobs:
+            if len(b) != nbytes:
+                raise KzgError("invalid blob length")
+        pad = max(0, (pad_to or 0) - len(blobs))
+        joined = b"".join(bytes(b) for b in blobs) + b"\x00" * (nbytes * pad)
+        return protocol.decode_blobs(self._to_device(joined, nbytes))
+
+    @staticmethod
+    def _check_ok(ok: torch.Tensor) -> None:
+        if not bool(ok.all()):
+            raise KzgError("non-canonical field element in blob")
+
+    @staticmethod
+    def _fr_bytes_to_int(b: bytes) -> int:
+        if len(b) != BYTES_PER_FIELD_ELEMENT:
+            raise KzgError("invalid field element length")
+        v = int.from_bytes(bytes(b), "big")
+        if v >= host.R:
+            raise KzgError("non-canonical field element")
+        return v
+
+    def _challenges(self, blobs, commitments) -> list[int]:
+        """Fiat-Shamir challenges of (blob, commitment) pairs, mod r."""
+        digests = self._challenge_digests(
+            b"".join(bytes(b) for b in blobs), b"".join(bytes(c) for c in commitments), len(blobs)
+        )
+        return [int.from_bytes(d, "big") % host.R for d in digests]
+
+    # -- commitments and proofs ------------------------------------------------
+
+    def _commit_one(self, chunk: torch.Tensor):
+        """One commit of (commit_chunk or fewer, N, 16) plain scalars: the
+        fixed-base comb, or the windowed Pippenger when comb_h = 0."""
+        h = self.config.comb_h
+        if h == 0:
+            return protocol.commit_msm(self.setup.g1_points, chunk, self.config.msm_window)
+        if self._comb_table is None:
+            self._comb_table = comb.build_table(self.setup.g1_points, h)
+        return protocol.commit_comb(self._comb_table, chunk, h, self.config.n)
+
+    def _commit_elements(self, elements_plain: torch.Tensor):
+        B = elements_plain.shape[0]
+        if B <= self.commit_chunk:
+            return self._commit_one(elements_plain)
+        outs = []
+        for i in range(0, B, self.commit_chunk):
+            chunk = elements_plain[i : i + self.commit_chunk]
+            n = chunk.shape[0]
+            if n < self.commit_chunk:
+                chunk = torch.cat([chunk, chunk.new_zeros(self.commit_chunk - n, *chunk.shape[1:])])
+            outs.append(tuple(c[:n] for c in self._commit_one(chunk)))
+        return tuple(torch.cat([o[i] for o in outs]) for i in range(3))
+
+    def _evaluate_and_quotient(self, elements_plain: torch.Tensor, z_vals):
+        """(B, N, 16) plain elements and z ints -> (y ints, plain quotient)."""
+        elements_mont = protocol.fr_to_mont(elements_plain)
+        z_mont = protocol.fr_to_mont(protocol.fr_planes(z_vals, self.device))
+        y_mont = protocol.evaluate(elements_mont, z_mont, self.setup.roots)
+        q_mont = protocol.quotient(
+            elements_mont, z_mont, y_mont, self.setup.roots, self.setup.inv_roots
+        )
+        y_plain = protocol.fr_from_mont(y_mont).cpu().numpy()
+        ys = [FR.to_int(row, mont=False) for row in y_plain]
+        return ys, protocol.fr_from_mont(q_mont)
+
+    def blob_to_kzg_commitment(self, blob: bytes) -> bytes:
+        return self.blobs_to_kzg_commitments([blob])[0]
+
+    def blobs_to_kzg_commitments(self, blobs) -> list[bytes]:
+        n = len(blobs)
+        elements, ok = self._decode_blobs(blobs, pad_to=self._canon(n))
+        self._check_ok(ok[:n])
+        return compress.points_to_bytes(self._commit_elements(elements))[:n]
+
+    def compute_kzg_proof(self, blob: bytes, z: bytes) -> tuple[bytes, bytes]:
+        (proof,), (y,) = self.compute_kzg_proofs([blob], [z])
+        return proof, y
+
+    def compute_kzg_proofs(self, blobs, zs):
+        """Proofs of each blob's polynomial at its point z: (proofs, ys),
+        lists of bytes."""
+        if len(blobs) != len(zs):
+            raise KzgError("length mismatch")
+        n = len(blobs)
+        nc = self._canon(n)
+        elements, ok = self._decode_blobs(blobs, pad_to=nc)
+        self._check_ok(ok[:n])
+        z_vals = [self._fr_bytes_to_int(z) for z in zs] + [0] * (nc - n)
+        ys, q_plain = self._evaluate_and_quotient(elements, z_vals)
+        proofs = compress.points_to_bytes(self._commit_elements(q_plain))[:n]
+        return proofs, [v.to_bytes(32, "big") for v in ys[:n]]
+
+    def compute_blob_kzg_proof(self, blob: bytes, commitment: bytes) -> bytes:
+        return self.compute_blob_kzg_proofs([blob], [commitment])[0]
+
+    def _validate_g1_device(self, points) -> None:
+        """Full decompression of the points on the device, the subgroup
+        check by kernel K3 included; the batch pads with generator bytes."""
+        for p in points:
+            if len(p) != BYTES_PER_COMMITMENT:
+                raise KzgError("invalid point length")
+        n = len(points)
+        joined = b"".join(bytes(p) for p in points) + _G1_GEN_BYTES * (self._canon(n) - n)
+        _, ok_enc, ok_curve, ok_sub = decompress.g1_decompress(
+            self._to_device(joined, BYTES_PER_COMMITMENT)
+        )
+        masks = torch.stack([ok_enc, ok_curve, ok_sub])[:, :n].cpu().numpy()
+        self._raise_point_masks(masks)
+
+    def compute_blob_kzg_proofs(self, blobs, commitments) -> list[bytes]:
+        """Blob proofs: each blob's proof at its Fiat-Shamir challenge.  The
+        commitments are validated on the device before the blobs."""
+        if len(blobs) != len(commitments):
+            raise KzgError("length mismatch")
+        self._validate_g1_device(commitments)
+        n = len(blobs)
+        nc = self._canon(n)
+        elements, ok = self._decode_blobs(blobs, pad_to=nc)
+        self._check_ok(ok[:n])
+        z_vals = self._challenges(blobs, commitments) + [0] * (nc - n)
+        _, q_plain = self._evaluate_and_quotient(elements, z_vals)
+        return compress.points_to_bytes(self._commit_elements(q_plain))[:n]
+
     # -- verification -------------------------------------------------------
+
+    def verify_kzg_proof(self, proof: bytes, commitment: bytes, z: bytes, y: bytes) -> bool:
+        """Single-point verification: e(proof, [tau]_2 - z G2) ==
+        e(C - y G1, G2).  The proof's errors are raised before the
+        commitment's."""
+        for b in (proof, commitment):
+            if len(b) != BYTES_PER_COMMITMENT:
+                raise KzgError("invalid point length")
+        z_v = self._fr_bytes_to_int(z)
+        y_v = self._fr_bytes_to_int(y)
+        a1, a2, b1, proof_masks, comm_masks = protocol.verify_kzg_bytes(
+            self._to_device(bytes(proof), BYTES_PER_PROOF),
+            self._to_device(bytes(commitment), BYTES_PER_COMMITMENT),
+            protocol.fr_planes([z_v], self.device),
+            protocol.fr_planes([y_v], self.device),
+            self.setup.tau2,
+        )
+        masks = torch.stack([*proof_masks, *comm_masks]).cpu().numpy()
+        self._raise_point_masks(masks[:3])
+        self._raise_point_masks(masks[3:])
+        return bool(protocol.pairing_check(a1, a2, b1)[0])
+
 
     def verify_blob_kzg_proof(self, blob: bytes, commitment: bytes, proof: bytes) -> bool:
         return self.verify_blob_kzg_proof_batch([blob], [commitment], [proof])
@@ -128,13 +295,9 @@ class Kzg:
         joined_comms = b"".join(bytes(c) for c in commitments)
         joined_proofs = b"".join(bytes(p) for p in proofs)
 
-        def dev_bytes(data: bytes, width: int) -> torch.Tensor:
-            arr = np.frombuffer(data, dtype=np.uint8).reshape(nc, width)
-            return torch.as_tensor(arr.copy()).to(self.device)
-
-        blob_arr = dev_bytes(joined_blobs + b"\x00" * (nbytes * pad), nbytes)
-        comm_arr = dev_bytes(joined_comms + _G1_GEN_BYTES * pad, BYTES_PER_COMMITMENT)
-        proof_arr = dev_bytes(joined_proofs + _G1_GEN_BYTES * pad, BYTES_PER_PROOF)
+        blob_arr = self._to_device(joined_blobs + b"\x00" * (nbytes * pad), nbytes)
+        comm_arr = self._to_device(joined_comms + _G1_GEN_BYTES * pad, BYTES_PER_COMMITMENT)
+        proof_arr = self._to_device(joined_proofs + _G1_GEN_BYTES * pad, BYTES_PER_PROOF)
 
         z_digests = self._challenge_digests(joined_blobs, joined_comms, n)
         z_vals = [int.from_bytes(d, "big") % host.R for d in z_digests] + [0] * pad

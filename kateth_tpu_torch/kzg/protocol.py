@@ -1,7 +1,12 @@
-"""The device half of batch blob-proof verification.
+"""The device half of the KZG operations.
 
 * decode_blobs            -- per-element canonicality of the blobs
 * evaluate                -- barycentric evaluation with no field inversion
+* quotient                -- the quotient polynomial, with the root-hit row
+* commit_comb, commit_msm -- the commitment MSM: fixed-base comb (kernel
+                             K8) or windowed Pippenger (kernel K7)
+* verify_kzg_bytes        -- single-point verification up to the pairing
+                             check (kernels K3 and K6)
 * verify_blob_batch_fused -- decode, G1 decompression, evaluation and one
                              G1 ladder carrying the random-linear-combination
                              lincombs and the subgroup checks
@@ -15,16 +20,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..curves import decompress, ops
+from ..curves import comb, decompress, ops
 from ..curves import g1 as g1mod
 from ..curves import g2 as g2mod
 from ..curves import msm
 from ..fields import cuda_mont
 from ..fields import limbs as L
 from ..fields.specs import FR
-from .. import host, pairing
+from .. import cuda_pairing, host, pairing
 
 F1 = ops.FP_FIELD
+F2 = ops.FP2_FIELD
 _R_DIGITS = L.int_to_digits(FR.modulus, FR.n_digits)
 
 
@@ -34,23 +40,6 @@ def decode_blobs(blob_bytes: torch.Tensor):
     B = blob_bytes.shape[0]
     digits = L.be_bytes_to_digits(FR, blob_bytes.reshape(B, -1, 32))
     return digits, L.lt_modulus(FR, digits).all(-1)
-
-
-def _scan_mul(x: torch.Tensor, reverse: bool) -> torch.Tensor:
-    """Inclusive prefix (or suffix) products along axis -2, Hillis-Steele:
-    log2(n) rounds of one batched Montgomery multiply each."""
-    n = x.shape[-2]
-    one = FR.tensor("one_mont", x.device)
-    shift = 1
-    while shift < n:
-        ones = one.expand(*x.shape[:-2], shift, FR.n_digits)
-        if reverse:
-            shifted = torch.cat([x[..., shift:, :], ones], dim=-2)
-        else:
-            shifted = torch.cat([ones, x[..., : n - shift, :]], dim=-2)
-        x = L.mont_mul(FR, x, shifted)
-        shift *= 2
-    return x
 
 
 def evaluate(elements_mont: torch.Tensor, z_mont: torch.Tensor, roots: torch.Tensor):
@@ -70,8 +59,8 @@ def evaluate(elements_mont: torch.Tensor, z_mont: torch.Tensor, roots: torch.Ten
     # a root hit has one zero factor: mask it to one (the lane takes y_hit)
     one = FR.tensor("one_mont", d.device)
     safe = torch.where(hit[..., None], one, d)
-    prefix = _scan_mul(safe, reverse=False)
-    suffix = _scan_mul(safe, reverse=True)
+    prefix = L.scan_mul(FR, safe)
+    suffix = L.scan_mul(FR, safe, reverse=True)
     ones = one.expand(safe.shape[0], 1, FR.n_digits)
     prefix_shift = torch.cat([ones, prefix[:, : n - 1]], dim=1)
     suffix_shift = torch.cat([suffix[:, 1:], ones], dim=1)
@@ -81,6 +70,35 @@ def evaluate(elements_mont: torch.Tensor, z_mont: torch.Tensor, roots: torch.Ten
     ninv = torch.as_tensor(FR.from_int(pow(n, host.R - 2, host.R)), device=s.device)
     y = L.mont_mul(FR, s, ninv.expand_as(s))
     return torch.where(any_hit[..., None], y_hit, y)
+
+
+def quotient(elements_mont, z_mont, y_mont, roots, inv_roots):
+    """q_i = (f_i - y) / (w_i - z), and where z is the root w_h the special
+    row q_h = -(sum_j (f_j - y) w_j / (w_j - z)) / w_h (the hit term's
+    inverse is zero).  All Montgomery: elements (B, N, 16), z and y (B, 16),
+    roots and inv_roots (N, 16); returns q (B, N, 16)."""
+    rootsb = roots.expand_as(elements_mont)
+    hit = L.eq(z_mont[:, None, :], roots[None, :, :])  # (B, N)
+    invs = L.batch_inv(FR, L.sub(FR, rootsb, z_mont[:, None, :]))  # hit -> 0
+    fy = L.sub(FR, elements_mont, y_mont[:, None, :])
+    q = L.mont_mul(FR, fy, invs)
+    t = L.mont_mul(FR, L.mont_mul(FR, fy, rootsb), invs)
+    s = L.neg(FR, L.sum_mod(FR, t, axis=-2))  # (B, 16)
+    inv_hit = L.sum_mod(FR, torch.where(hit[..., None], inv_roots.expand_as(elements_mont), 0))
+    q_hit = L.mont_mul(FR, s, inv_hit)
+    return torch.where(hit[..., None], q_hit[:, None, :], q)
+
+
+def commit_comb(table, scalars_plain, h: int, n: int):
+    """Fixed-base comb commitment of (B, N, 16) plain scalars against the
+    comb table (curves/comb.py) -> projective G1 points, (B, 24) each."""
+    return comb.commit(table, scalars_plain, h, n)
+
+
+def commit_msm(g1_points, scalars_plain, window: int = 8):
+    """Windowed Pippenger commitment of (B, N, 16) plain scalars against
+    the (N,)-point setup table -> projective G1 points, (B, 24) each."""
+    return msm.msm(g1_points, scalars_plain, c=window)
 
 
 def pairing_check(a1, a2, b1):
@@ -127,7 +145,7 @@ def verify_blob_batch_fused(
     sc = torch.cat([w_plain, w_plain, zw_plain, s_plain[None], r])
     prods = cuda_mont.g1_scalar_mul(lanes, sc)
     lin = tuple(a[: 3 * B].reshape(3, B, *a.shape[1:]) for a in prods)
-    sums = msm.tree_sum(F1, lin, axis=1)
+    sums = msm.halving_sum(F1, lin, axis=1)
     lhs1 = tuple(a[0] for a in sums)
     sG = tuple(a[3 * B] for a in prods)
     lhs2 = ops.padd(F1, tuple(a[1] for a in sums), sG)
@@ -142,6 +160,45 @@ def verify_blob_batch_fused(
         tuple(c[None] for c in rhs),
     )
     return pc_in, packed
+
+
+def verify_kzg_bytes(proof_bytes, comm_bytes, z_plain, y_plain, tau2):
+    """Single-point verification up to the pairing check.
+
+    Decompresses proofs and commitments in one pass, runs ONE G1 ladder
+    (kernel K3) over [(-G1) y | r proof | r comm] (the subgroup checks ride
+    along), and the G2 ladder (kernel K6) for z (-G2).  Returns (a1, a2, b1)
+    for pairing_check: a1 = proof, a2 = [tau]_2 - z G2, b1 = C - y G1; then
+    the proof masks and the commitment masks, each (ok_encoding, ok_curve,
+    ok_subgroup)."""
+    B = z_plain.shape[0]
+    dev = z_plain.device
+    pts, enc_ok, curve_ok = decompress.g1_decompress_nosub(torch.cat([proof_bytes, comm_bytes]))
+    proof_pt = tuple(a[:B] for a in pts)
+    comm_pt = tuple(a[B:] for a in pts)
+    neg_g1 = ops.pneg(F1, tuple(torch.as_tensor(g, device=dev).expand(B, -1) for g in g1mod.GENERATOR))
+    lanes = tuple(torch.cat([g, a]) for g, a in zip(neg_g1, pts))
+    sc = torch.cat([y_plain, torch.as_tensor(_R_DIGITS, device=dev).expand(2 * B, FR.n_digits)])
+    prods = cuda_mont.g1_scalar_mul(lanes, sc)
+    sub_ok = ops.is_identity(F1, tuple(a[B:] for a in prods))  # [proof | comm]
+    b1 = ops.padd(F1, comm_pt, tuple(a[:B] for a in prods))
+    neg_g2 = ops.pneg(F2, tuple(torch.as_tensor(g, device=dev).expand(B, 2, -1) for g in g2mod.GENERATOR))
+    a2 = ops.padd(F2, tuple(t.expand(B, 2, -1) for t in tau2), cuda_pairing.g2_scalar_mul(neg_g2, z_plain))
+    return (
+        proof_pt,
+        a2,
+        b1,
+        (enc_ok[:B], curve_ok[:B], sub_ok[:B]),
+        (enc_ok[B:], curve_ok[B:], sub_ok[B:]),
+    )
+
+
+def fr_to_mont(x_plain: torch.Tensor) -> torch.Tensor:
+    return L.to_mont(FR, x_plain)
+
+
+def fr_from_mont(x_mont: torch.Tensor) -> torch.Tensor:
+    return L.from_mont(FR, x_mont)
 
 
 def fr_planes(vals, device) -> torch.Tensor:

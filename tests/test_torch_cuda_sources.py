@@ -1,8 +1,10 @@
 """The constants written into the CUDA sources (kateth_tpu_torch/csrc)
 equal the ones the Python side computes: moduli and Montgomery constants
-as 32-bit limbs, the Frobenius gammas, and |x| of the Miller loop and the
-hard part.  The kernels themselves build and run only on a GPU
-(chip_smoke.py); this holds their tables here."""
+as 32-bit limbs, the Frobenius gammas, |x| of the Miller loop and the hard
+part, and the curve constant 3b of the G1 and G2 point formulas; and every
+C launcher's parameters match the ctypes types cuda_lib binds it with.
+The kernels themselves build and run only on a GPU (chip_smoke.py); this
+holds their tables and interfaces here."""
 
 import os
 import re
@@ -10,7 +12,7 @@ import re
 import numpy as np
 import pytest
 
-from kateth_tpu_torch import host
+from kateth_tpu_torch import cuda_lib, host
 from kateth_tpu_torch.fields import fp12
 from kateth_tpu_torch.fields import limbs as L
 
@@ -59,3 +61,36 @@ def test_frobenius_gammas():
 def test_x_abs(name):
     m = re.search(r"kXAbs = 0x([0-9a-f]+)ull", _read(name))
     assert int(m.group(1), 16) == -host.BLS_X
+
+
+def test_curve_constant_3b():
+    """b = 4: G1 formulas multiply by 3b = 12 (mul12 = 8a + 4a), G2 ones by
+    3b' = 12 xi (and 36 xi = 3 (3b') in the doubling), as curves/ops.py."""
+    g1 = _read("g1.cuh")
+    assert re.search(r"fadd<FpField>\(a8, a4, a4\);\s*fadd<FpField>\(r, a8, a4\);", g1)
+    g2 = _read("g2.cuh")
+    assert "f2_mul_small(cx, 12)" in g2 and "f2_mul_small(cx, 36)" in g2
+    assert "f2_mul_small(f2_mul_by_xi(m2), 12)" in g2
+    assert "f2_mul_small(f2_mul_by_xi(ty), 12)" in g2
+
+
+_CTYPES = {"ptr": cuda_lib._P, "int": cuda_lib._I, "int64_t": cuda_lib._L}
+
+
+def _c_params(src: str, fn: str) -> list:
+    m = re.search(r"\bint " + fn + r"\(([^)]*)\)\s*\{", src)
+    assert m, fn
+    kinds = []
+    for param in m.group(1).split(","):
+        decl = param.strip().rsplit(" ", 1)[0]
+        kinds.append("ptr" if "*" in param else decl)
+    return [_CTYPES[k] for k in kinds]
+
+
+@pytest.mark.parametrize("kernel", sorted(cuda_lib.KERNELS))
+def test_launcher_signature_matches_binding(kernel):
+    """The ctypes argument types, then the stream, are the C launcher's."""
+    lib, fn, argtypes = cuda_lib.KERNELS[kernel]
+    src = _read(cuda_lib.LIBRARIES[lib])
+    assert 'extern "C"' in src and "kateth_error_string" in src
+    assert _c_params(src, fn) == [*argtypes, cuda_lib._P]

@@ -89,11 +89,13 @@ def test_scalar_mul_plain_matches_jax():
 
 
 def test_tree_sum_and_to_affine_match_jax():
+    """The port's halving sum against the JAX tree_sum, in affine (the two
+    add in other orders)."""
     P = g1.from_ints(g1_points()[:3])  # three points: padded to four
     want = jax.jit(
         lambda a: jops.to_affine(jops.FP_FIELD, jmsm.tree_sum(jops.FP_FIELD, a, axis=0))
     )(j(P))
-    got = ops.to_affine(ops.FP_FIELD, msm.tree_sum(ops.FP_FIELD, t(P), axis=0))
+    got = ops.to_affine(ops.FP_FIELD, msm.halving_sum(ops.FP_FIELD, t(P), axis=0))
     assert same(got, want)
 
 

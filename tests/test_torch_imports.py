@@ -1,7 +1,7 @@
 """The port stands alone: no module of kateth_tpu_torch, and neither
-chip_smoke.py nor tools/profile_torch_verify.py, imports jax or the JAX
-package; its entry points default to
-CUDA and refuse to run elsewhere unless the caller names the device."""
+chip_smoke.py nor the tools/profile_torch_*.py scripts, imports jax or the
+JAX package; its entry points default to CUDA and refuse to run elsewhere
+unless the caller names the device."""
 
 import ast
 import os
@@ -15,7 +15,8 @@ FORBIDDEN = ("jax", "jaxlib", "kateth_tpu")
 
 
 def _sources():
-    out = [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "tools", "profile_torch_verify.py")]
+    out = [os.path.join(REPO, "chip_smoke.py")]
+    out += [os.path.join(REPO, "tools", f"profile_torch_{n}.py") for n in ("verify", "commit")]
     for root, _, files in os.walk(PKG):
         out += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(out)

@@ -1,0 +1,178 @@
+#!/usr/bin/env python3
+"""Where a 64-blob commitment spends its time in the PyTorch/CUDA port, on
+one GPU, on both commit paths.
+
+Loads the mainnet setup and commits 64 copies of the vendored
+`blob_to_kzg_commitment/valid_0` blob.  Every stage below is timed on the
+host clock between two syncs, summed over the loop it sits in:
+  1. the comb (comb_h = 12): the table build (seconds, peak device
+     memory), then one commit by its columns: the row gather, kernel K8,
+     the halving sum of the chain totals, and the doubling and addition
+     into the accumulator; then blobs_to_kzg_commitments by stage (blob
+     decode, commit, compression and read-back) and compute_kzg_proofs'
+     evaluation and quotient;
+  2. the windowed Pippenger (comb_h = 0): one commit by its windows: the
+     stable argsort and gather, kernel K7 alone, the rest of the two-level
+     scan, the bucket-boundary gather, the halving sum, the (2^c - 1)
+     total, and the window sum with the doublings and addition between
+     windows;
+  3. one traced comb commit (torch.profiler): device busy share and
+     launches.
+Both replays are checked against the library's own commit.  Prints one
+JSON object with the card's name and power limit.
+
+Run from the repository root: python3 tools/profile_torch_commit.py
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+
+def main() -> int:
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke
+    from kateth_tpu_torch.curves import comb, compress, cuda_msm, msm, ops
+    from kateth_tpu_torch.kzg import Kzg, protocol
+    from kateth_tpu_torch.kzg.setup import DEFAULT_TRUSTED_SETUP
+
+    if not torch.cuda.is_available():
+        print("profile_torch_commit: no CUDA device", file=sys.stderr)
+        return 1
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    F1 = ops.FP_FIELD
+    dev = torch.device("cuda")
+    kzg = Kzg.load_json(DEFAULT_TRUSTED_SETUP, device=dev)
+    cfg = kzg.config
+    case = chip_smoke.parse_vector(os.path.join(
+        chip_smoke.VECTORS, "blob_to_kzg_commitment", "valid_0", "data.yaml"))
+    blobs = [case["input"]["blob"]] * 64
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    out = {"device": smi}
+
+    # 1. the comb
+    torch.cuda.reset_peak_memory_stats(dev)
+    table, build_ms = timed(lambda: comb.build_table(kzg.setup.g1_points, cfg.comb_h))
+    out["comb_table"] = {"build_s": build_ms / 1e3,
+                         "peak_gib": torch.cuda.max_memory_allocated(dev) / 2**30,
+                         "rows": table[0].shape[0]}
+    kzg._comb_table = table
+    elements, ok = kzg._decode_blobs(blobs)
+    want = comb.commit(table, elements, cfg.comb_h, cfg.n)
+
+    h, n = cfg.comb_h, cfg.n
+    d = comb.comb_dims(h)
+    cols = comb.column_digits(elements, h, d)
+    base = torch.arange(n, device=dev) << h
+    acc = ops.identity(F1, (64,), dev)
+    ms = dict.fromkeys(("gather", "comb_chain_sum", "halving_sum", "double_add"), 0.0)
+    for t in range(d - 1, -1, -1):
+        idx = cols[t] + base
+        (x, y, fl), dt = timed(lambda: (table[0][idx], table[1][idx], cols[t] != 0))
+        ms["gather"] += dt
+        chains, dt = timed(lambda: cuda_msm.comb_chain_sum(x, y, fl))
+        ms["comb_chain_sum"] += dt
+        s, dt = timed(lambda: msm.halving_sum(F1, chains, axis=1))
+        ms["halving_sum"] += dt
+        acc, dt = timed(lambda: ops.padd(F1, ops.pdouble(F1, acc), s))
+        ms["double_add"] += dt
+    assert all(torch.equal(a, b) for a, b in zip(acc, want)), "comb replay differs"
+    out["comb_commit_ms_by_stage"] = ms
+
+    (elements, ok), decode_ms = timed(lambda: kzg._decode_blobs(blobs))
+    pt, commit_ms = timed(lambda: kzg._commit_elements(elements))
+    got, compress_ms = timed(lambda: compress.points_to_bytes(pt))
+    assert got == [case["output"]] * 64
+    z = protocol.fr_to_mont(protocol.fr_planes([12345] * 64, dev))
+    em, lift_ms = timed(lambda: protocol.fr_to_mont(elements))
+    y, eval_ms = timed(lambda: protocol.evaluate(em, z, kzg.setup.roots))
+    _, quot_ms = timed(lambda: protocol.quotient(em, z, y, kzg.setup.roots, kzg.setup.inv_roots))
+    out["blobs_to_kzg_commitments_ms"] = {
+        "decode": decode_ms, "commit": commit_ms, "compress_and_read": compress_ms}
+    out["prove_ms"] = {"to_mont": lift_ms, "evaluate": eval_ms, "quotient": quot_ms}
+
+    # 2. the windowed Pippenger
+    c = cfg.msm_window
+    B = 1 << c
+    pts = kzg.setup.g1_points
+    want = msm.msm(pts, elements, c)
+    digits = msm.window_digits(elements, c)
+    acc = ops.identity(F1, (64,), dev)
+    ms = dict.fromkeys(("argsort_gather", "prefix_scan_K7", "scan_rest", "boundary",
+                        "halving_sum", "total_times_255", "combine"), 0.0)
+    j = torch.arange(1, B, device=dev).expand(64, B - 1).contiguous()
+    for w in range(digits.shape[0] - 1, -1, -1):
+        dig = digits[w]
+
+        def sort_gather():
+            order = torch.argsort(dig, dim=-1, stable=True)
+            return torch.take_along_dim(dig, order, dim=-1), tuple(a[order] for a in pts)
+
+        (sd, gathered), dt = timed(sort_gather)
+        ms["argsort_gather"] += dt
+        _, dt = timed(lambda: cuda_msm.chain_prefix(gathered, cuda_msm.CHAIN))
+        ms["prefix_scan_K7"] += dt
+        prefix, dt = timed(lambda: cuda_msm.prefix_scan_kernel(gathered))
+        ms["scan_rest"] += dt  # one K7 launch included, taken out below
+
+        def boundary():
+            c_j = torch.searchsorted(sd.contiguous(), j)
+            idx = (c_j - 1).clamp(min=0)[..., None]
+            bnd = tuple(torch.take_along_dim(a, idx, dim=-2) for a in prefix)
+            return ops.pselect(F1, c_j == 0, ops.identity(F1, (64, B - 1), dev), bnd)
+
+        bnd, dt = timed(boundary)
+        ms["boundary"] += dt
+        gsum, dt = timed(lambda: msm.halving_sum(F1, bnd, axis=-2))
+        ms["halving_sum"] += dt
+        tot, dt = timed(lambda: msm.scalar_mul_const(F1, tuple(a[..., -1, :] for a in prefix), B - 1))
+        ms["total_times_255"] += dt
+
+        def combine():  # the window sum, then c doublings and the addition
+            a = acc
+            for _ in range(c):
+                a = ops.pdouble(F1, a)
+            return ops.padd(F1, a, ops.padd(F1, tot, ops.pneg(F1, gsum)))
+
+        acc, dt = timed(combine)
+        ms["combine"] += dt
+    ms["scan_rest"] -= ms["prefix_scan_K7"]  # prefix_scan_kernel includes one K7 launch
+    assert all(torch.equal(a, b) for a, b in zip(acc, want)), "msm replay differs"
+    out["msm_commit_ms_by_stage"] = ms
+
+    # 3. one traced comb commit
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, traced_ms = timed(lambda: kzg._commit_elements(elements))
+    busy_ms, launches = 0.0, 0
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            busy_ms += ev.time_range.elapsed_us() / 1e3
+            launches += 1
+    out["traced_comb_commit"] = {"ms": traced_ms, "device_busy_ms": busy_ms,
+                                 "device_busy_share": busy_ms / traced_ms,
+                                 "device_operations": launches}
+    print(json.dumps(out, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
