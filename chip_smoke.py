@@ -8,7 +8,9 @@ Phases, one line each; any failure exits non-zero before the last line:
    process per source, all at once.
 3. kernels: each of the eight kernels at its main-path shape, held bit for
    bit against its plain PyTorch version on the same inputs on the card,
-   with the median time of each (CUDA events, after a warm-up).
+   with the median time of each (CUDA events, after a warm-up); K1 also
+   timed over Fp at the point formulas' widths (128 and 8,192 lanes), the
+   team kernels K3 also checked at 1, 3 and 4,096 lanes and K4 at 1 lane.
 4. paths, each run with the launch counters zeroed just before and read
    just after, each required to launch its own kernels:
    - batch verify: Kzg.load_json of the mainnet setup, every vendored
@@ -23,7 +25,8 @@ Phases, one line each; any failure exits non-zero before the last line:
    - commit with the windowed Pippenger (comb_h = 0): every
      blob_to_kzg_commitment vector.
    A vector's output must match; `output: null` must raise KzgError.
-5. the kernels JSON line, the nvidia-smi line, and the result line.
+5. the kernels JSON line (with K1's launches by lane count), the
+   nvidia-smi line, and the result line.
 
 Run from the repository root: python3 chip_smoke.py
 """
@@ -123,6 +126,31 @@ def cuda_time_ms(fn, runs: int, warmup: int = 1) -> float:
     return statistics.median(times)
 
 
+def device_ms_per_call(fn, runs: int, kernel: str) -> float | None:
+    """Device time per call of fn() spent in the CUDA kernels whose name
+    holds `kernel`, from torch.profiler; None if it records none.  Unlike
+    cuda_time_ms it leaves out the host's share of a short call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    us = [ev.time_range.elapsed_us() for ev in prof.events()
+          if ev.device_type == torch.autograd.DeviceType.CUDA and kernel in ev.name]
+    return sum(us) / runs / 1e3 if us else None
+
+
+def schedule_products(header: str) -> list[int]:
+    """The Fp products of each program of a team kernel's schedule: the
+    kProgramProducts of kateth_tpu_torch/csrc/<header>."""
+    with open(os.path.join(ROOT, "kateth_tpu_torch", "csrc", header)) as f:
+        m = re.search(r"kProgramProducts\[\d+\] = \{([^}]*)\};", f.read())
+    return [int(v) for v in m.group(1).split(",")]
+
+
 def max_abs_err(got, want) -> int:
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
@@ -151,7 +179,8 @@ def kernel_phases(dev, smi: str) -> list[dict]:
 
     out = []
 
-    def record(name, src, replaces, kernel_fn, plain_fn, runs, plain_runs, nbytes, muls):
+    def timed(name, kernel_fn, plain_fn, runs, plain_runs, nbytes, muls):
+        """Check kernel_fn against plain_fn bit for bit, then time both."""
         got, want = kernel_fn(), plain_fn()
         torch.cuda.synchronize()
         err = max_abs_err(got, want)
@@ -161,6 +190,11 @@ def kernel_phases(dev, smi: str) -> list[dict]:
         plain_ms = cuda_time_ms(plain_fn, plain_runs)
         bytes_ms = nbytes / PEAK_BYTES_S * 1e3
         ops_ms = muls / PEAK_WIDE_MULS_S * 1e3
+        return err, ms, plain_ms, bytes_ms, ops_ms
+
+    def record(name, src, replaces, kernel_fn, plain_fn, runs, plain_runs, nbytes, muls):
+        err, ms, plain_ms, bytes_ms, ops_ms = timed(
+            name, kernel_fn, plain_fn, runs, plain_runs, nbytes, muls)
         entry = {
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -176,14 +210,29 @@ def kernel_phases(dev, smi: str) -> list[dict]:
     src = "kateth_tpu_torch/csrc/kernels.cu"
     # K1 at the evaluate shape: B x N = 64 x 4096 Fr lanes
     a, b = field_elems(FR, 64 * 4096), field_elems(FR, 64 * 4096).flip(0)
-    record("mont_mul", src, "kateth_tpu/fields/pallas_mont.py:177",
-           lambda: cuda_mont.mont_mul(FR, a, b), lambda: cuda_mont.mont_mul_plain(FR, a, b),
-           20, 3, 3 * a.numel() * 8, a.shape[0] * MULS_FR)
+    k1 = record("mont_mul", src, "kateth_tpu/fields/pallas_mont.py:177",
+                lambda: cuda_mont.mont_mul(FR, a, b), lambda: cuda_mont.mont_mul_plain(FR, a, b),
+                20, 3, 3 * a.numel() * 8, a.shape[0] * MULS_FR)
+    k1["device_ms"] = device_ms_per_call(lambda: cuda_mont.mont_mul(FR, a, b), 20, "mont_mul_kernel")
+    log(f"kernel mont_mul: device time {k1['device_ms']} ms per launch [{smi}]")
     # K1 over Fp at the setup-load shape (4096 lanes): checked, logged
     a, b = field_elems(FP, 4096), field_elems(FP, 4096).flip(0)
     if max_abs_err(cuda_mont.mont_mul(FP, a, b), cuda_mont.mont_mul_plain(FP, a, b)):
         raise AssertionError("mont_mul over Fp differs from its plain version")
     log("kernel mont_mul (Fp, 4096 lanes): equal to plain")
+    # K1 over Fp at the widths of the plain point formulas, where most of
+    # its launches are: 128 lanes (verify) and 8,192 (the comb's sums)
+    k1["widths"] = []
+    for lanes in (128, 8192):
+        a, b = field_elems(FP, lanes), field_elems(FP, lanes).flip(0)
+        _, ms, plain_ms, bytes_ms, ops_ms = timed(
+            "mont_mul", lambda: cuda_mont.mont_mul(FP, a, b),
+            lambda: cuda_mont.mont_mul_plain(FP, a, b), 50, 5, 3 * a.numel() * 8, lanes * MULS_FP)
+        dev_ms = device_ms_per_call(lambda: cuda_mont.mont_mul(FP, a, b), 100, "mont_mul_kernel")
+        k1["widths"].append({"field": "fp", "lanes": lanes, "ms": ms, "device_ms": dev_ms,
+                             "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms)})
+        log(f"kernel mont_mul (Fp, {lanes} lanes): equal to plain; {ms:.4f} ms a call, device "
+            f"time {dev_ms} ms (plain {plain_ms:.2f} ms, bound {max(bytes_ms, ops_ms):.4f} ms) [{smi}]")
 
     # K2: the G1 square root over the 2B = 128 decompression lanes, and p - 2
     a = field_elems(FP, 128)
@@ -198,30 +247,50 @@ def kernel_phases(dev, smi: str) -> list[dict]:
         raise AssertionError("pow_chain with p - 2 differs from its plain version")
     log("kernel pow_chain (p - 2, 128 lanes): equal to plain")
 
-    # K3 at the fused verify shape: 5B + 1 = 321 lanes, 3B + 1 random
-    # scalars and 2B subgroup lanes with scalar r
+    # K3, a team of threads per lane: bit for bit at 1 lane, a partial
+    # warp, 3 lanes (single verify) and 4,096 (the setup's subgroup check),
+    # then timed at the fused verify shape: 5B + 1 = 321 lanes, 3B + 1
+    # random scalars and 2B subgroup lanes with scalar r
     pts = [host.jac_mul_raw(host.FP_OPS, host.G1_GEN, int(k))
            for k in rng.integers(1, 1 << 62, 64)]
-    P = tuple(torch.as_tensor(np.resize(c, (321, 24))).to(dev) for c in g1mod.from_ints(pts))
-    sc = np.stack([L.int_to_digits(int.from_bytes(rng.bytes(32), "big") % host.R, 16)
-                   for _ in range(193)] + [L.int_to_digits(host.R, 16)] * 128)
-    sc = torch.as_tensor(sc).to(dev)
+
+    def ladder_inputs(lanes, n_random):
+        P = tuple(torch.as_tensor(np.resize(c, (lanes, 24))).to(dev) for c in g1mod.from_ints(pts))
+        sc = [L.int_to_digits(int.from_bytes(rng.bytes(32), "big") % host.R, 16)
+              for _ in range(n_random)] + [L.int_to_digits(host.R, 16)] * (lanes - n_random)
+        if lanes > 2:
+            sc[1] = L.int_to_digits(0, 16)
+        return P, torch.as_tensor(np.stack(sc)).to(dev)
+
+    for lanes in (1, 3, 4096):
+        P, sc = ladder_inputs(lanes, max(1, lanes - 1))
+        err = max_abs_err(cuda_mont.g1_scalar_mul(P, sc), cuda_mont.g1_scalar_mul_plain(P, sc))
+        if err:
+            raise AssertionError(f"g1_ladder at {lanes} lanes differs from its plain version")
+        log(f"kernel g1_ladder ({lanes} lanes): equal to plain")
+    P, sc = ladder_inputs(321, 193)
+    (g1_products,) = schedule_products("schedule_g1.cuh")
     record("g1_ladder", src, "kateth_tpu/fields/pallas_mont.py:452",
            lambda: cuda_mont.g1_scalar_mul(P, sc),
            lambda: cuda_mont.g1_scalar_mul_plain(P, sc),
-           5, 1, (3 * 24 + 16 + 3 * 24) * 8 * 321, 321 * 256 * 20 * MULS_FP)
+           20, 1, (3 * 24 + 16 + 3 * 24) * 8 * 321, 321 * 256 * g1_products * MULS_FP)
 
     # K4 at the pairing check's 2 lanes
     xp, yp = ops.to_affine(ops.FP_FIELD, tuple(c[:2] for c in P))
     q2 = [host.jac_mul_raw(host.FP2_OPS, host.G2_GEN, int(k)) for k in rng.integers(1, 1 << 62, 2)]
     Q = tuple(torch.as_tensor(c).to(dev) for c in g2mod.from_ints(q2))
     xq, yq = ops.to_affine(ops.FP2_FIELD, Q)
-    x_bits = bin(-host.BLS_X)[3:]
-    miller_muls = 157 * len(x_bits) + 52 * x_bits.count("1")
+    # the Fp products of the team schedule (constant factors folded away)
+    products = schedule_products("schedule_miller.cuh")
+    miller_muls = sum(products[int(b)] for b in bin(-host.BLS_X)[3:])
+    one = (xp[:1], yp[:1], xq[:1], yq[:1])
+    if max_abs_err(cuda_pairing.miller_loop_affine(*one), cuda_pairing.miller_loop_affine_plain(*one)):
+        raise AssertionError("miller at 1 lane differs from its plain version")
+    log("kernel miller (1 lane): equal to plain")
     record("miller", "kateth_tpu_torch/csrc/miller.cu", "kateth_tpu/pallas_pairing.py:415",
            lambda: cuda_pairing.miller_loop_affine(xp, yp, xq, yq),
            lambda: cuda_pairing.miller_loop_affine_plain(xp, yp, xq, yq),
-           5, 1, (2 * 24 + 4 * 24 + 288) * 8 * 2, 2 * miller_muls * MULS_FP)
+           20, 1, (2 * 24 + 4 * 24 + 288) * 8 * 2, 2 * miller_muls * MULS_FP)
 
     # K5 at the single lane of the final exponentiation, after the easy part
     f = cuda_pairing.miller_loop_affine(xp[:1], yp[:1], xq[:1], yq[:1])
@@ -278,7 +347,7 @@ PATH_KERNELS = {
 }
 
 
-def drive(path: str, fn, totals: dict) -> None:
+def drive(path: str, fn, totals: dict, k1_buckets: dict) -> None:
     """Run one path with the launch counters zeroed just before and read
     just after; every kernel of the path must have launched."""
     from kateth_tpu_torch import cuda_lib
@@ -287,12 +356,14 @@ def drive(path: str, fn, totals: dict) -> None:
     fn()
     torch.cuda.synchronize()
     launches = dict(cuda_lib.LAUNCHES)
-    log(f"path {path}: launches {launches}")
+    log(f"path {path}: launches {launches}; mont_mul by lanes {cuda_lib.MONT_MUL_LAUNCHES}")
     missing = [k for k in PATH_KERNELS[path] if launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the {path} path: {missing}")
     for k, v in launches.items():
         totals[k] += v
+    for k, v in cuda_lib.MONT_MUL_LAUNCHES.items():
+        k1_buckets[k] += v
 
 
 def run_vectors(op: str, call) -> None:
@@ -319,9 +390,10 @@ def run_vectors(op: str, call) -> None:
     log(f"vectors: {op}: {len(names)} pass in {time.perf_counter() - t0:.2f} s")
 
 
-def main_path(dev, smi: str) -> dict:
+def main_path(dev, smi: str) -> tuple[dict, dict]:
     """Each path of the port through its public entry points at mainnet
-    width; returns the launches per kernel summed over the paths."""
+    width; returns the launches per kernel summed over the paths, and
+    mont_mul's launches by lane count."""
     from dataclasses import replace
 
     from kateth_tpu_torch import cuda_lib
@@ -329,6 +401,7 @@ def main_path(dev, smi: str) -> dict:
     from kateth_tpu_torch.kzg.setup import DEFAULT_TRUSTED_SETUP
 
     totals = {k: 0 for k in cuda_lib.KERNELS}
+    k1_buckets = {k: 0 for k in cuda_lib.MONT_MUL_LAUNCHES}
     holder = {}
 
     def batch_verify():
@@ -397,11 +470,12 @@ def main_path(dev, smi: str) -> dict:
         kzg = Kzg(replace(base.setup, config=replace(base.config, comb_h=0)))
         run_vectors("blob_to_kzg_commitment", lambda i: kzg.blob_to_kzg_commitment(i["blob"]))
 
-    drive("batch verify", batch_verify, totals)
-    drive("single-point verify", single_verify, totals)
-    drive("commit and prove (comb_h = 12)", commit_comb, totals)
-    drive("commit (comb_h = 0)", commit_msm, totals)
-    return totals
+    drive("batch verify", batch_verify, totals, k1_buckets)
+    drive("single-point verify", single_verify, totals, k1_buckets)
+    drive("commit and prove (comb_h = 12)", commit_comb, totals, k1_buckets)
+    drive("commit (comb_h = 0)", commit_msm, totals, k1_buckets)
+    log(f"mont_mul launches by lanes over the four paths: {k1_buckets}")
+    return totals, k1_buckets
 
 
 def main() -> int:
@@ -425,9 +499,11 @@ def main() -> int:
             log(f"build: lib{lib}: " + "; ".join(ptxas_summary(f.read())))
 
     entries = kernel_phases(dev, smi)
-    launches = main_path(dev, smi)
+    launches, k1_buckets = main_path(dev, smi)
     for e in entries:
         e["launches"] = launches[e["name"]]
+        if e["name"] == "mont_mul":
+            e["launches_by_lanes"] = k1_buckets
     print(json.dumps({"kernels": entries}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,9 @@
 // G1 (over Fp) complete projective point formulas for one CUDA thread.
 //
-// RCB16 Algorithms 7 and 9 with a = 0, 3b = 12, in the grouping of
-// curves/ops.py::padd and pdouble, so every result is the same projective
-// representative the plain PyTorch formulas give.  Shared by the G1 ladder
-// (kernels.cu) and the MSM kernels (msm.cu).
+// RCB16 Algorithm 7 with a = 0, 3b = 12, in the grouping of
+// curves/ops.py::padd, so every result is the same projective
+// representative the plain PyTorch formulas give.  Used by the MSM kernels
+// (msm.cu); the G1 ladder runs its own round schedule (schedule_g1.cuh).
 
 #pragma once
 
@@ -43,34 +43,6 @@ __device__ __forceinline__ void mul12(uint32_t* r, const uint32_t* a) {
   fadd<FpField>(a4, a2, a2);
   fadd<FpField>(a8, a4, a4);
   fadd<FpField>(r, a8, a4);
-}
-
-// RCB16 Algorithm 9 (a = 0), the grouping of curves/ops.py::pdouble
-__device__ __forceinline__ G1 g1_double(const G1& p) {
-  using Fp = FpField;
-  uint32_t a[12], bb[12], c[12], d[12], e[12], t2[12], a8[12], t0[12], y3a[12];
-  fmul<Fp>(a, p.y, p.y);
-  fmul<Fp>(bb, p.y, p.z);
-  fmul<Fp>(c, p.z, p.z);
-  fmul<Fp>(d, p.x, p.y);
-  mul12(e, c);
-  fadd<Fp>(t2, e, e);
-  fadd<Fp>(t2, t2, e);  // 3 b3 Z^2
-  fadd<Fp>(a8, a, a);
-  fadd<Fp>(a8, a8, a8);
-  fadd<Fp>(a8, a8, a8);  // 8 Y^2
-  fsub<Fp>(t0, a, t2);
-  fadd<Fp>(y3a, a, e);
-  uint32_t n0[12], n1[12], n2[12], n3[12];
-  fmul<Fp>(n0, t0, d);
-  fmul<Fp>(n1, e, a8);
-  fmul<Fp>(n2, t0, y3a);
-  fmul<Fp>(n3, bb, a8);
-  G1 r;
-  fadd<Fp>(r.x, n0, n0);
-  fadd<Fp>(r.y, n1, n2);
-  fcopy<Fp>(r.z, n3);
-  return r;
 }
 
 // RCB16 Algorithm 7 (a = 0) after its six products m0..m5 =

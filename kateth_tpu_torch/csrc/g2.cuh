@@ -3,8 +3,9 @@
 //
 // RCB16 Algorithms 7 and 9 with a = 0, 3b = 12 xi, in the grouping of
 // curves/ops.py::padd and pdouble, so every result is the same projective
-// representative the plain PyTorch formulas give.  Shared by the Miller
-// loop (miller.cu) and the G2 ladder (g2_ladder.cu).
+// representative the plain PyTorch formulas give.  Used by the G2 ladder
+// (g2_ladder.cu); the Miller loop runs its own round schedule
+// (schedule_miller.cuh).
 
 #pragma once
 

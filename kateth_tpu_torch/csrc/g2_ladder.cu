@@ -11,8 +11,8 @@
 // Bound: operations, but in practice latency: 256 dependent steps of 20
 // Fp2 products on the single lane of verify_kzg_proof (z times -G2), so
 // one thread of one warp runs.  Design: one thread per lane, the point in
-// local memory through the __noinline__ Fp2 products of tower.cuh, as in
-// the Miller loop; the scalar's limbs stay in registers.
+// local memory through the __noinline__ Fp2 products of tower.cuh; the
+// scalar's limbs stay in registers.
 
 #include <cuda_runtime.h>
 

@@ -1,8 +1,9 @@
 // Kernels K1-K3: batched Montgomery multiply, pow chain and G1 ladder.
 //
 // Operands arrive in the PyTorch layout: int64 tensors of 16-bit digits,
-// lane-major ((lanes, D), digits contiguous).  Each thread owns one lane,
-// packs its digits into 32-bit limbs, computes, and unpacks on store.
+// lane-major ((lanes, D), digits contiguous).  In K1 and K2 each thread owns
+// one lane; in K3 a team of 8 threads does (team.cuh).  Digits are packed
+// into 32-bit limbs on load and unpacked on store.
 //
 // C interface, bound with ctypes by kateth_tpu_torch/cuda_lib.py: every
 // launcher takes the device pointers and the CUDA stream, launches on that
@@ -10,7 +11,8 @@
 
 #include <cuda_runtime.h>
 
-#include "g1.cuh"
+#include "field.cuh"
+#include "schedule_g1.cuh"
 
 using namespace kt;
 
@@ -83,33 +85,68 @@ __global__ void __launch_bounds__(kThreads)
 
 // ---------------------------------------------------------------------------
 // K3 g1_ladder.  Replaces pallas_mont.py::_g1_ladder_flat (G1Vec).
-// Bound: operations.  256 MSB-first steps of a complete doubling
-// (8 products) and a complete addition (12 products) per lane, all of them
-// a dependent chain.  At the verify shape (5B + 1 = 321 lanes) only three
-// blocks of 128 threads run, on 3 of the 132 SMs: the kernel is latency
-// bound and leaves most of the card idle.
-// Design: one thread per lane, the point in registers, the complete RCB16
-// formulas of g1.cuh (those of curves/ops.py) so the projective result is
-// bit-identical to the plain ladder; the lane's scalar bit selects the sum.
+// Bound: operations, in practice the latency of dependent Fp products.
+// 256 MSB-first steps of a complete doubling (8 products) and a complete
+// addition (12 products) per lane; at the verify shape (5B + 1 = 321 lanes)
+// one thread per lane would walk a chain of 5,120 products on 3 SMs.
+// Design: a team of 8 threads per lane, 4 lanes to a warp, 8 lanes to a
+// block.  The step is the round schedule of schedule_g1.cuh (team_schedule.py:
+// the formulas of curves/ops.py over Fp, 4 product rounds of at most 6
+// products), run by team.cuh's interpreter with the carry-chain product;
+// the accumulator, the base and the temporaries live in shared memory and
+// the team syncs with __syncwarp over its 8 lanes.  The point doubles and
+// adds every bit; the lane's scalar bit selects the sum (the SEL round), so
+// the projective result is bit-identical to the plain ladder.
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(kThreads)
+constexpr int kLadderTeams = 8;  // lanes per block
+constexpr int kLadderThreads = kLadderTeams * sched_g1_ladder::kTeamThreads;
+
+struct TeamSync {
+  unsigned mask;
+  __device__ __forceinline__ void operator()() const { __syncwarp(mask); }
+};
+
+__global__ void __launch_bounds__(kLadderThreads)
     g1_ladder_kernel(const int64_t* __restrict__ px, const int64_t* __restrict__ py,
                      const int64_t* __restrict__ pz, const int64_t* __restrict__ scalars,
                      int64_t* __restrict__ ox, int64_t* __restrict__ oy,
                      int64_t* __restrict__ oz, int64_t lanes) {
-  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= lanes) return;
-  G1 base = g1_load(px + i * 24, py + i * 24, pz + i * 24);
-  uint32_t s[8];  // plain scalar, 16 digits -> 8 limbs
-  load_digits<FrField>(s, scalars + i * 16);
-  G1 acc = g1_identity();
+  using namespace sched_g1_ladder;
+  static_assert(kTeamThreads == 8, "four teams to a warp");
+  __shared__ __align__(16) Slot slots[kLadderTeams][kSlots];
+  __shared__ uint32_t words[kLadderTeams][8];  // the lane's plain scalar
+  const int team = threadIdx.x / kTeamThreads, t = threadIdx.x % kTeamThreads;
+  const int64_t i = (int64_t)blockIdx.x * kLadderTeams + team;
+  if (i >= lanes) return;  // whole teams leave together
+  const TeamSync sync{0xffu << (kTeamThreads * (team & 3))};
+  Slot* slot = slots[team];
+  // the inputs: base, acc = (0 : 1 : 0), the constants; one slot a thread
+  uint32_t v[12];
+  if (t == 0) load_digits<FpField>(v, px + i * 24);
+  else if (t == 1) load_digits<FpField>(v, py + i * 24);
+  else if (t == 2) load_digits<FpField>(v, pz + i * 24);
+  else if (t == 3 || t == 4) fone<FpField>(v);
+  else fzero<FpField>(v);
+  const int dst = t == 0   ? kSlot_bx
+                  : t == 1 ? kSlot_by
+                  : t == 2 ? kSlot_bz
+                  : t == 3 ? kSlot_one
+                  : t == 4 ? kSlot_y
+                  : t == 5 ? kSlot_zero
+                  : t == 6 ? kSlot_x
+                           : kSlot_z;
+  slot_store(slot[dst], v);
+  words[team][t] = (uint32_t)scalars[i * 16 + 2 * t] | ((uint32_t)scalars[i * 16 + 2 * t + 1] << 16);
+  sync();
   for (int k = 255; k >= 0; --k) {
-    acc = g1_double(acc);
-    G1 sum = g1_add(acc, base);
-    if ((s[k >> 5] >> (k & 31)) & 1u) acc = sum;
+    const bool bit = (words[team][k >> 5] >> (k & 31)) & 1u;
+    run_program<Sched>(slot, 0, t, bit, sync);
   }
-  g1_store(ox + i * 24, oy + i * 24, oz + i * 24, acc);
+  if (t < 3) {
+    slot_load(v, slot[t == 0 ? kSlot_x : t == 1 ? kSlot_y : kSlot_z]);
+    store_digits<FpField>((t == 0 ? ox : t == 1 ? oy : oz) + i * 24, v);
+  }
 }
 
 }  // namespace
@@ -148,7 +185,8 @@ int kateth_g1_ladder(const int64_t* px, const int64_t* py, const int64_t* pz,
                      const int64_t* scalars, int64_t* ox, int64_t* oy, int64_t* oz,
                      int64_t lanes, void* stream) {
   if (lanes <= 0) return 0;
-  g1_ladder_kernel<<<blocks_for(lanes), kThreads, 0, (cudaStream_t)stream>>>(
+  const unsigned int blocks = (unsigned int)((lanes + kLadderTeams - 1) / kLadderTeams);
+  g1_ladder_kernel<<<blocks, kLadderThreads, 0, (cudaStream_t)stream>>>(
       px, py, pz, scalars, ox, oy, oz, lanes);
   return (int)cudaGetLastError();
 }

@@ -9,13 +9,13 @@
 // Two kinds of function must repeat the plain formulas exactly, because
 // their result is not a unique field element: the cyclotomic squaring
 // (Granger-Scott, exact only on the cyclotomic subgroup) and the projective
-// point and line formulas of the Miller loop.  Those mirror
-// fields/fp12.py::cyc_sqr, curves/ops.py and pairing.py operation for
-// operation.
+// point formulas of the G2 ladder.  Those mirror fields/fp12.py::cyc_sqr
+// and curves/ops.py operation for operation.
 //
 // The products above Fp2 are __noinline__ so that each kernel's code stays
-// small; their operands then live in local memory (see the notes in
-// miller.cu and hard_part.cu).
+// small; their operands then live in local memory (see the note in
+// hard_part.cu).  Used by K5 (hard_part.cu) and K6 (g2_ladder.cu, through
+// g2.cuh); the Miller loop runs its own round schedule.
 
 #pragma once
 
@@ -149,9 +149,6 @@ __device__ __noinline__ fp2 f2_sqr(const fp2& a) {
   fp c1 = f_mul(a.c0, a.c1);
   return f2_make(c0, f_add(c1, c1));
 }
-__device__ __forceinline__ fp2 f2_scale(const fp2& a, const fp& s) {
-  return f2_make(f_mul(a.c0, s), f_mul(a.c1, s));
-}
 __device__ __forceinline__ fp2 f2_load(const int64_t* d) {
   return f2_make(f_load(d), f_load(d + 24));
 }
@@ -229,15 +226,6 @@ __device__ __noinline__ fp12 f12_mul(const fp12& a, const fp12& b) {
   fp12 r;
   r.c[0] = f6_add(t0, f6_mul_by_v(t1));
   r.c[1] = f6_sub(s, f6_add(t0, t1));
-  return r;
-}
-// complex squaring: t = a0 a1; c0 = (a0 + a1)(a0 + v a1) - t - v t; c1 = 2t
-__device__ __noinline__ fp12 f12_sqr(const fp12& a) {
-  fp6 t = f6_mul(a.c[0], a.c[1]);
-  fp6 s = f6_mul(f6_add(a.c[0], a.c[1]), f6_add(a.c[0], f6_mul_by_v(a.c[1])));
-  fp12 r;
-  r.c[0] = f6_sub(s, f6_add(t, f6_mul_by_v(t)));
-  r.c[1] = f6_add(t, t);
   return r;
 }
 // Granger-Scott cyclotomic squaring, the formula of fields/fp12.py::cyc_sqr

@@ -3,12 +3,13 @@
 The sources in ``csrc/`` are compiled with ``nvcc`` for ``sm_90a`` into
 shared libraries with a plain C interface, one library per ``.cu`` file,
 all compiled at once on first use into ``build/kateth_tpu_torch/<hash>/``
-beside the package (the hash covers every source file, so an edited source
-builds anew).  The libraries are loaded with ctypes.  A failed build raises;
+beside the package (the hash covers every .cu and .cuh file, so an edited
+source builds anew).  The libraries are loaded with ctypes.  A failed build raises;
 nothing falls back to the plain path.
 
 ``LAUNCHES`` counts the kernel launches: each wrapper adds one where it
 launches its kernel, so a run can show which kernels its path went through.
+``MONT_MUL_LAUNCHES`` splits K1's launches by their number of lanes.
 """
 
 from __future__ import annotations
@@ -56,15 +57,28 @@ KERNELS = {
 #: launches per kernel since the last reset_launch_counts()
 LAUNCHES = {name: 0 for name in KERNELS}
 
+#: mont_mul launches by lane count since the last reset_launch_counts():
+#: a launch's time depends on its width, and most launches are narrow
+MONT_MUL_LAUNCHES = {"<=1024": 0, "<=65536": 0, ">65536": 0}
+
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, MONT_MUL_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
+
+
+def count_mont_mul_lanes(lanes: int) -> None:
+    """Count one mont_mul launch of `lanes` lanes in its bucket."""
+    MONT_MUL_LAUNCHES["<=1024" if lanes <= 1024 else "<=65536" if lanes <= 65536 else ">65536"] += 1
 
 
 def source_hash() -> str:
+    """Hash of what nvcc reads: the .cu and .cuh files of csrc/."""
     h = hashlib.sha256()
     for name in sorted(os.listdir(CSRC)):
+        if not name.endswith((".cu", ".cuh")):
+            continue
         with open(os.path.join(CSRC, name), "rb") as f:
             h.update(name.encode() + b"\0" + f.read())
     return h.hexdigest()[:16]

@@ -58,6 +58,7 @@ def mont_mul(spec: L.FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tenso
         cuda_lib.launch(
             "mont_mul", a.device, _field_id(spec), a.data_ptr(), b.data_ptr(), out.data_ptr(), lanes
         )
+        cuda_lib.count_mont_mul_lanes(lanes)
     return out
 
 

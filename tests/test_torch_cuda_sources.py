@@ -1,13 +1,15 @@
 """The constants written into the CUDA sources (kateth_tpu_torch/csrc)
 equal the ones the Python side computes: moduli and Montgomery constants
 as 32-bit limbs, the Frobenius gammas, |x| of the Miller loop and the hard
-part, and the curve constant 3b of the G1 and G2 point formulas; and every
-C launcher's parameters match the ctypes types cuda_lib binds it with.
+part, the curve constant 3b of the G1 and G2 point formulas and of the
+team kernels' schedules; every C launcher's parameters match the ctypes
+types cuda_lib binds it with, and the build's hash covers the sources.
 The kernels themselves build and run only on a GPU (chip_smoke.py); this
 holds their tables and interfaces here."""
 
 import os
 import re
+import shutil
 
 import numpy as np
 import pytest
@@ -72,6 +74,35 @@ def test_curve_constant_3b():
     assert "f2_mul_small(cx, 12)" in g2 and "f2_mul_small(cx, 36)" in g2
     assert "f2_mul_small(f2_mul_by_xi(m2), 12)" in g2
     assert "f2_mul_small(f2_mul_by_xi(ty), 12)" in g2
+
+
+def test_schedule_constants():
+    """The team kernels' schedules (team_schedule.py traces curves/ops.py)
+    carry 3b: b = 4 on G1, so the G1 ladder's small multiples are 3b and
+    3 (3b) (pdouble's b3 Z^2 and 3 b3 Z^2, padd's b3 Z1 Z2) and 8 (8 Y^2)."""
+    from kateth_tpu_torch import team_schedule as gs
+
+    b = host.FP_OPS.b
+    assert b == 4 and host.FP2_OPS.b == (4, 4)
+    (prog,) = gs.g1_schedule().programs
+    ks = {k for _, ins in prog.rounds for op, _, _, k in ins if op == gs.SMALL}
+    assert ks == {3 * b, 9 * b, 8}
+
+
+def test_source_hash_covers_only_cuda_sources(tmp_path, monkeypatch):
+    """Bytecode or a script beside the sources (a csrc/__pycache__) neither
+    breaks the build's hash nor changes it; an edited header does."""
+    want = cuda_lib.source_hash()
+    csrc = tmp_path / "csrc"
+    shutil.copytree(cuda_lib.CSRC, csrc)
+    (csrc / "__pycache__").mkdir(exist_ok=True)
+    (csrc / "__pycache__" / "notes.cpython-312.pyc").write_bytes(b"\0")
+    (csrc / "notes.py").write_text("")
+    monkeypatch.setattr(cuda_lib, "CSRC", str(csrc))
+    assert cuda_lib.source_hash() == want
+    with open(csrc / "team.cuh", "a") as f:
+        f.write("\n")
+    assert cuda_lib.source_hash() != want
 
 
 _CTYPES = {"ptr": cuda_lib._P, "int": cuda_lib._I, "int64_t": cuda_lib._L}

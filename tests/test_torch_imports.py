@@ -1,5 +1,5 @@
 """The port stands alone: no module of kateth_tpu_torch, and neither
-chip_smoke.py nor the tools/profile_torch_*.py scripts, imports jax or the
+chip_smoke.py nor the port's tools/profile_*.py scripts, imports jax or the
 JAX package; its entry points default to CUDA and refuse to run elsewhere
 unless the caller names the device."""
 
@@ -17,6 +17,7 @@ FORBIDDEN = ("jax", "jaxlib", "kateth_tpu")
 def _sources():
     out = [os.path.join(REPO, "chip_smoke.py")]
     out += [os.path.join(REPO, "tools", f"profile_torch_{n}.py") for n in ("verify", "commit")]
+    out.append(os.path.join(REPO, "tools", "profile_team_kernels.py"))
     for root, _, files in os.walk(PKG):
         out += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(out)

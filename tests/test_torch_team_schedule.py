@@ -1,0 +1,133 @@
+"""The round schedules of the team kernels K3 (G1 ladder) and K4 (Miller
+loop), kateth_tpu_torch/csrc/schedule_{g1,miller}.cuh, on the CPU.
+
+The kernels are small interpreters over these tables, so a wrong slot or
+a wrong formula shows here: the committed headers are what the generator
+emits now, and the tables, run round by round with the plain Fp operations
+of kateth_tpu_torch.fields.limbs, give the plain ladder's and the plain
+Miller loop's digits bit for bit.  No JAX."""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from kateth_tpu_torch import cuda_pairing, host
+from kateth_tpu_torch import team_schedule as gs
+from kateth_tpu_torch.curves import g1 as g1mod
+from kateth_tpu_torch.curves import g2 as g2mod
+from kateth_tpu_torch.curves import ops
+from kateth_tpu_torch.fields import cuda_mont
+from kateth_tpu_torch.fields import limbs as L
+from kateth_tpu_torch.fields.specs import FP, FR
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+def _rounds(prog: gs.Program) -> list:
+    """Each round's instructions as index tensors, one group per opcode."""
+    out = []
+    for _, ins in prog.rounds:
+        op, dst, a, b = (torch.tensor(c) for c in zip(*ins))
+        out.append([(k, dst[op == k], a[op == k], b[op == k]) for k in op.unique().tolist()])
+    return out
+
+
+def _run(rounds: list, slots: torch.Tensor, bit=None) -> None:
+    """Run a program on the slot file (slots, lanes, 24) in place, as the
+    kernels do: every operand of a round is read before it writes, and
+    each opcode of a round is one batched plain Fp operation."""
+    for groups in rounds:
+        writes = []
+        for op, dst, a, b in groups:
+            x = slots[a]
+            if op == gs.MUL:
+                v = L.mont_mul(FP, x, slots[b])
+            elif op == gs.ADD:
+                v = L.add(FP, x, slots[b])
+            elif op == gs.SUB:
+                v = L.sub(FP, x, slots[b])
+            elif op == gs.SMALL:
+                v = L.mul_small(FP, x, b.numpy()[:, None])
+            else:
+                v = torch.where(bit[None, :, None], x, slots[b])
+            writes.append((dst, v))
+        for dst, v in writes:
+            slots[dst] = v
+
+
+def _slots(sched: gs.Schedule, lanes: int, values: dict) -> torch.Tensor:
+    slots = torch.zeros(sched.n_slots, lanes, FP.n_digits, dtype=torch.int64)
+    slots[sched.slot_of["one"]] = FP.tensor("one_mont", "cpu")
+    for name, v in values.items():
+        slots[sched.slot_of[name]] = v
+    return slots
+
+
+@pytest.mark.parametrize("fname", sorted(gs.HEADERS))
+def test_committed_header_is_generated(fname):
+    with open(os.path.join(gs.CSRC, fname)) as f:
+        assert f.read() == gs.emit(gs.HEADERS[fname]())
+
+
+@pytest.mark.parametrize("make", [gs.g1_schedule, gs.miller_schedule], ids=["g1", "miller"])
+def test_product_rounds_fit_the_team(make):
+    """Every product round fits the team, so a round is one product deep
+    (building the schedule has already run the generator's hazard
+    checks)."""
+    s = make()
+    for p in s.programs:
+        assert max(len(ins) for m, ins in p.rounds if m) <= s.threads
+
+
+def test_g1_schedule_matches_plain_ladder():
+    """256 ladder steps of the schedule, with scalars 0, r and a random one,
+    against cuda_mont.g1_scalar_mul_plain: the same projective digits."""
+    rng = np.random.default_rng(0x6731)
+    pts = [host.jac_mul_raw(host.FP_OPS, host.G1_GEN, int(k)) for k in rng.integers(1, 1 << 62, 3)]
+    P = tuple(torch.as_tensor(c) for c in g1mod.from_ints(pts))
+    scalars = [0, host.R, int.from_bytes(rng.bytes(32), "big") % host.R]
+    sc = torch.as_tensor(np.stack([L.int_to_digits(s, FR.n_digits) for s in scalars]))
+    want = cuda_mont.g1_scalar_mul_plain(P, sc)
+
+    sched = gs.g1_schedule()
+    (prog,) = sched.programs
+    # acc = (0 : 1 : 0), the base P
+    slots = _slots(sched, 3, {"y": FP.tensor("one_mont", "cpu"), "bx": P[0], "by": P[1], "bz": P[2]})
+    rounds = _rounds(prog)
+    for bit in ops.scalar_bits_msb(sc, 256):
+        _run(rounds, slots, bit)
+    for n, w in zip(gs.G1_STATE, want):
+        assert torch.equal(slots[sched.slot_of[n]], w)
+
+
+def test_miller_schedule_matches_plain_miller_loop():
+    """The 63 steps over the bits of |x|, then the conjugate, against
+    cuda_pairing.miller_loop_affine_plain on two lanes: the same Fp12
+    digits."""
+    rng = np.random.default_rng(0x4D69)
+    pts = [host.jac_mul_raw(host.FP_OPS, host.G1_GEN, int(k)) for k in rng.integers(1, 1 << 62, 2)]
+    xp, yp = ops.to_affine(ops.FP_FIELD, tuple(torch.as_tensor(c) for c in g1mod.from_ints(pts)))
+    q2 = [host.jac_mul_raw(host.FP2_OPS, host.G2_GEN, int(k)) for k in rng.integers(1, 1 << 62, 2)]
+    xq, yq = ops.to_affine(ops.FP2_FIELD, tuple(torch.as_tensor(c) for c in g2mod.from_ints(q2)))
+    want = cuda_pairing.miller_loop_affine_plain(xp, yp, xq, yq)
+
+    sched = gs.miller_schedule()
+    # T = (xq : yq : 1), f = 1 (the other inputs start at zero)
+    one = FP.tensor("one_mont", "cpu")
+    values = {"xp": xp, "yp": yp, "tz_0": one, "f_0": one}
+    for stem, v in (("xq", xq), ("yq", yq), ("tx", xq), ("ty", yq)):
+        values[f"{stem}_0"], values[f"{stem}_1"] = v[:, 0], v[:, 1]
+    slots = _slots(sched, 2, values)
+    rounds = [_rounds(p) for p in sched.programs]
+    for bit in bin(cuda_pairing.X_ABS)[3:]:
+        _run(rounds[int(bit)], slots)
+    f = slots[[sched.slot_of[f"f_{m}"] for m in range(12)]]
+    f = torch.cat([f[:6], L.neg(FP, f[6:])])  # the conjugate
+    assert torch.equal(f.movedim(0, 1).reshape(2, 2, 3, 2, FP.n_digits), want)
