@@ -10,7 +10,9 @@ Phases, one line each; any failure exits non-zero before the last line:
    bit against its plain PyTorch version on the same inputs on the card,
    with the median time of each (CUDA events, after a warm-up); K1 also
    timed over Fp at the point formulas' widths (128 and 8,192 lanes), the
-   team kernels K3 also checked at 1, 3 and 4,096 lanes and K4 at 1 lane.
+   team kernels K3 also checked at 1, 3 and 4,096 lanes, K4 at 1 lane and
+   K5 at 3 lanes, and K8 also at 1 chain, a partial block and one comb
+   column, then timed at the commit's one launch over all 22 columns.
 4. paths, each run with the launch counters zeroed just before and read
    just after, each required to launch its own kernels:
    - batch verify: Kzg.load_json of the mainnet setup, every vendored
@@ -21,7 +23,8 @@ Phases, one line each; any failure exits non-zero before the last line:
    - commit and prove with the default comb (comb_h = 12): the first
      commit, which builds the comb table (seconds, peak memory), every
      blob_to_kzg_commitment, compute_kzg_proof and compute_blob_kzg_proof
-     vector, and one 64-blob blobs_to_kzg_commitments (commitments/s);
+     vector, and one 64-blob blobs_to_kzg_commitments (commitments/s), which
+     must launch K8 once;
    - commit with the windowed Pippenger (comb_h = 0): every
      blob_to_kzg_commitment vector.
    A vector's output must match; `output: null` must raise KzgError.
@@ -91,8 +94,8 @@ def parse_vector(path: str) -> dict:
 
 
 def ptxas_summary(log_text: str) -> list[str]:
-    """'kernel: R registers, S bytes stack' for each entry function in an
-    nvcc -Xptxas -v log."""
+    """'kernel: R registers, S bytes stack, M bytes smem' for each entry
+    function in an nvcc -Xptxas -v log."""
     out, name = [], None
     for line in log_text.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
@@ -106,7 +109,9 @@ def ptxas_summary(log_text: str) -> list[str]:
             stack = m.group(1)
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
-            out.append(f"{name}: {m.group(1)} registers, {stack} bytes stack")
+            smem = re.search(r"(\d+) bytes smem", line)
+            out.append(f"{name}: {m.group(1)} registers, {stack} bytes stack, "
+                       f"{smem.group(1) if smem else 0} bytes smem")
             name = None
     return out
 
@@ -143,11 +148,12 @@ def device_ms_per_call(fn, runs: int, kernel: str) -> float | None:
     return sum(us) / runs / 1e3 if us else None
 
 
-def schedule_products(header: str) -> list[int]:
-    """The Fp products of each program of a team kernel's schedule: the
-    kProgramProducts of kateth_tpu_torch/csrc/<header>."""
+def schedule_products(header: str, what: str = "kProgramProducts") -> list[int]:
+    """The Fp products (or, with what = "kProgramProductRounds", the
+    product rounds) of each program of a team kernel's schedule, from
+    kateth_tpu_torch/csrc/<header>."""
     with open(os.path.join(ROOT, "kateth_tpu_torch", "csrc", header)) as f:
-        m = re.search(r"kProgramProducts\[\d+\] = \{([^}]*)\};", f.read())
+        m = re.search(what + r"\[\d+\] = \{([^}]*)\};", f.read())
     return [int(v) for v in m.group(1).split(",")]
 
 
@@ -292,14 +298,29 @@ def kernel_phases(dev, smi: str) -> list[dict]:
            lambda: cuda_pairing.miller_loop_affine_plain(xp, yp, xq, yq),
            20, 1, (2 * 24 + 4 * 24 + 288) * 8 * 2, 2 * miller_muls * MULS_FP)
 
-    # K5 at the single lane of the final exponentiation, after the easy part
-    f = cuda_pairing.miller_loop_affine(xp[:1], yp[:1], xq[:1], yq[:1])
+    # K5, a block of threads per lane, on cyclotomic values: the Miller
+    # values of 2 lanes and a random Fp12 value through the easy part;
+    # checked at 3 lanes, then timed at the single lane of a verify
+    f = cuda_pairing.miller_loop_affine(xp, yp, xq, yq)
+    f = torch.cat([f, field_elems(FP, 12).reshape(1, 2, 3, 2, FP.n_digits)])
     f = fp12.mul(fp12.conj(f), fp12.inv(f))
     f = fp12.mul(fp12.frob(fp12.frob(f)), f)
-    hard_muls = 5 * (64 * 18 + 6 * 54) + 7 * 54 + 3 * 15 + 18
+    if max_abs_err(cuda_pairing.hard_part(f), cuda_pairing.hard_part_plain(f)):
+        raise AssertionError("hard_part at 3 lanes differs from its plain version")
+    log("kernel hard_part (3 lanes): equal to plain")
+    # the schedule's products and product rounds: five powers, each a
+    # squaring (program 0) or a squaring and a product (program 1) per bit
+    # of |x| after its leading one, and the five glue steps (programs 2-6)
+    products = schedule_products("schedule_hard_part.cuh")
+    rounds = schedule_products("schedule_hard_part.cuh", "kProgramProductRounds")
+    per_power = lambda c: sum(c[int(b)] for b in bin(-host.BLS_X)[3:])  # noqa: E731
+    hard_muls = 5 * per_power(products) + sum(products[2:])
+    log(f"kernel hard_part: {hard_muls} Fp products a lane, "
+        f"{5 * per_power(rounds) + sum(rounds[2:])} product rounds on its critical path")
+    f1 = f[:1]
     record("hard_part", "kateth_tpu_torch/csrc/hard_part.cu", "kateth_tpu/pallas_pairing.py:435",
-           lambda: cuda_pairing.hard_part(f), lambda: cuda_pairing.hard_part_plain(f),
-           5, 1, 2 * 288 * 8, hard_muls * MULS_FP)
+           lambda: cuda_pairing.hard_part(f1), lambda: cuda_pairing.hard_part_plain(f1),
+           20, 1, 2 * 288 * 8, hard_muls * MULS_FP)
 
     # K6 at the single lane of verify_kzg_proof: z (-G2), 256 steps of a
     # doubling (8 Fp2 products) and an addition (12), 3 Fp products each
@@ -320,9 +341,12 @@ def kernel_phases(dev, smi: str) -> list[dict]:
            lambda: cuda_msm.chain_prefix_plain(P, cuda_msm.CHAIN),
            10, 2, 2 * 3 * lanes * 24 * 8, lanes * 12 * MULS_FP)
 
-    # K8 at one column of the 64-blob comb commit: 64 x 4096 gathered
-    # affine rows (about one in a hundred the identity) in 8,192 chains of
-    # 32 mixed additions (11 products each)
+    # K8 on gathered affine comb rows (about one in a hundred the identity):
+    # checked at 1 chain, a partial block of 45 chains and one column of the
+    # 64-blob commit (64 x 4096 rows, 8,192 chains), then timed at the
+    # commit's one launch over all 22 columns (22 x 64 x 4096 rows gathered
+    # at random, 180,224 chains of 32 additions; the bound counts the 11
+    # products of a mixed addition, the schedule does 12: Z1 Z2 by a SEL)
     aff = [host.jac_to_affine(host.FP_OPS, p) for p in pts]
     ax = np.resize(np.stack([FP.from_int(a[0]) for a in aff]), (64, 4096, 24))
     ay = np.resize(np.stack([FP.from_int(a[1]) for a in aff]), (64, 4096, 24))
@@ -330,10 +354,22 @@ def kernel_phases(dev, smi: str) -> list[dict]:
     ax = torch.as_tensor(np.where(flags[..., None], ax, 0)).to(dev)
     ay = torch.as_tensor(np.where(flags[..., None], ay, FP.one_mont)).to(dev)
     flags = torch.as_tensor(flags).to(dev)
-    chains = lanes // cuda_msm.COMB_CHAIN
+    g = cuda_msm.COMB_CHAIN
+    flat = (ax.reshape(-1, 24), ay.reshape(-1, 24), flags.reshape(-1))
+    for what, (xs, ys, fs) in (("1 chain", tuple(c[:g] for c in flat)),
+                               ("45 chains", tuple(c[:45 * g] for c in flat)),
+                               ("64 x 4096 rows", (ax, ay, flags))):
+        if max_abs_err(cuda_msm.comb_chain_sum(xs, ys, fs), cuda_msm.comb_chain_sum_plain(xs, ys, fs, g)):
+            raise AssertionError(f"comb_chain_sum at {what} differs from its plain version")
+        log(f"kernel comb_chain_sum ({what}): equal to plain")
+    d = 22
+    pick = torch.as_tensor(rng.integers(0, 64 * 4096, (d, 64, 4096))).to(dev)
+    ax, ay, flags = ax.reshape(-1, 24)[pick], ay.reshape(-1, 24)[pick], flags.reshape(-1)[pick]
+    lanes = d * 64 * 4096
+    chains = lanes // g
     record("comb_chain_sum", src, "kateth_tpu/curves/pallas_msm.py:138",
            lambda: cuda_msm.comb_chain_sum(ax, ay, flags),
-           lambda: cuda_msm.comb_chain_sum_plain(ax, ay, flags, cuda_msm.COMB_CHAIN),
+           lambda: cuda_msm.comb_chain_sum_plain(ax, ay, flags, g),
            10, 1, (2 * lanes * 24 + lanes + 3 * chains * 24) * 8, lanes * 11 * MULS_FP)
     return out
 
@@ -455,15 +491,18 @@ def main_path(dev, smi: str) -> tuple[dict, dict]:
         blobs = [blob] * 64
         times = []
         for _ in range(3):
+            k8 = cuda_lib.LAUNCHES["comb_chain_sum"]
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = kzg.blobs_to_kzg_commitments(blobs)
             times.append(time.perf_counter() - t0)
             if out != [case["output"]] * 64:
                 raise AssertionError("64-blob commitments differ from the vector")
+            if cuda_lib.LAUNCHES["comb_chain_sum"] - k8 != 1:
+                raise AssertionError("a 64-blob commit did not launch K8 exactly once")
         dt = statistics.median(times)
         log(f"commit: 64-blob blobs_to_kzg_commitments {dt:.3f} s (median of 3) = "
-            f"{64 / dt:.1f} commitments/s [{smi}]")
+            f"{64 / dt:.1f} commitments/s, one K8 launch each [{smi}]")
 
     def commit_msm():
         base = holder["kzg"]

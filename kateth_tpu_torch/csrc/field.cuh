@@ -6,10 +6,11 @@
 // values are bit-identical to the PyTorch digit planes after packing digit
 // pairs into limbs (digit 2i is the low half of limb i).
 //
-// Multiplication is CIOS with 64-bit products and one final conditional
-// subtraction; add and sub end in one conditional correction.  Every
-// function returns the canonical value (< modulus), so any formula that
-// computes the same field element gives the same bits as the plain path.
+// Multiplication is CIOS with one final conditional subtraction; add and
+// sub end in one conditional correction.  Over Fp all three run on PTX
+// carry chains (below); over Fr on 64-bit products.  Every function
+// returns the canonical value (< modulus), so any formula that computes
+// the same field element gives the same bits as the plain path.
 //
 // The constants below are checked against the Python ones by
 // tests/test_torch_cuda_sources.py.
@@ -137,6 +138,160 @@ __device__ __forceinline__ void fmul(uint32_t* r, const uint32_t* a, const uint3
   csub<F>(r, t, t[N]);
 }
 
+// --- Fp on PTX carry chains ---------------------------------------------------
+//
+// Every kernel's Fp arithmetic.  The product is CIOS on the hardware's
+// 32-bit carry chains (mad.lo.cc / madc.hi.cc): each of the 12 rounds adds
+// a b_i, then m p, as two chains of low halves and two of high halves
+// into a 13-word accumulator.  p < 2^381 leaves the top word room for
+// every carry, and the result, below 2p, takes one conditional
+// subtraction, so it returns the canonical value.  fmul, fadd and fsub
+// over FpField are these; Fr keeps the generic 64-bit versions above.
+
+namespace ptx {
+
+__device__ __forceinline__ uint32_t mad_lo_cc(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t r;
+  asm volatile("mad.lo.cc.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c));
+  return r;
+}
+__device__ __forceinline__ uint32_t madc_lo_cc(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t r;
+  asm volatile("madc.lo.cc.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c));
+  return r;
+}
+__device__ __forceinline__ uint32_t mad_hi_cc(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t r;
+  asm volatile("mad.hi.cc.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c));
+  return r;
+}
+__device__ __forceinline__ uint32_t madc_hi_cc(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t r;
+  asm volatile("madc.hi.cc.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c));
+  return r;
+}
+__device__ __forceinline__ uint32_t madc_hi(uint32_t a, uint32_t b, uint32_t c) {
+  uint32_t r;
+  asm volatile("madc.hi.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(b), "r"(c));
+  return r;
+}
+__device__ __forceinline__ uint32_t add_cc(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm volatile("add.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+__device__ __forceinline__ uint32_t addc_cc(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm volatile("addc.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+__device__ __forceinline__ uint32_t addc(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm volatile("addc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+__device__ __forceinline__ uint32_t sub_cc(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm volatile("sub.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+__device__ __forceinline__ uint32_t subc_cc(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm volatile("subc.cc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+__device__ __forceinline__ uint32_t subc(uint32_t a, uint32_t b) {
+  uint32_t r;
+  asm volatile("subc.u32 %0, %1, %2;" : "=r"(r) : "r"(a), "r"(b));
+  return r;
+}
+
+}  // namespace ptx
+
+// r = t < p ? t : t - p, for t < 2p < 2^384
+__device__ __forceinline__ void fp_csub_cc(uint32_t* r, const uint32_t* t) {
+  uint32_t d[12];
+  d[0] = ptx::sub_cc(t[0], FP_MOD[0]);
+#pragma unroll
+  for (int j = 1; j < 12; ++j) d[j] = ptx::subc_cc(t[j], FP_MOD[j]);
+  const uint32_t borrow = ptx::subc(0, 0);  // all ones iff t < p
+#pragma unroll
+  for (int j = 0; j < 12; ++j) r[j] = borrow ? t[j] : d[j];
+}
+
+// Montgomery product a b 2^-384 mod p, canonical; r may alias a or b.
+__device__ __forceinline__ void fp_mul_cc(uint32_t* r, const uint32_t* a, const uint32_t* b) {
+  uint32_t t[13];
+#pragma unroll
+  for (int j = 0; j < 13; ++j) t[j] = 0;
+#pragma unroll
+  for (int i = 0; i < 12; ++i) {
+    const uint32_t bi = b[i];
+    // t += a b_i: low halves into t[0..11] (carry into t[12]), high halves
+    // into t[1..12]
+    t[0] = ptx::mad_lo_cc(a[0], bi, t[0]);
+#pragma unroll
+    for (int j = 1; j < 12; ++j) t[j] = ptx::madc_lo_cc(a[j], bi, t[j]);
+    t[12] = ptx::addc(t[12], 0);
+    t[1] = ptx::mad_hi_cc(a[0], bi, t[1]);
+#pragma unroll
+    for (int j = 1; j < 11; ++j) t[j + 1] = ptx::madc_hi_cc(a[j], bi, t[j + 1]);
+    t[12] = ptx::madc_hi(a[11], bi, t[12]);
+    // t += m p with m = -t_0 / p mod 2^32, which clears t[0]
+    const uint32_t m = t[0] * FP_N0;
+    t[0] = ptx::mad_lo_cc(m, FP_MOD[0], t[0]);
+#pragma unroll
+    for (int j = 1; j < 12; ++j) t[j] = ptx::madc_lo_cc(m, FP_MOD[j], t[j]);
+    t[12] = ptx::addc(t[12], 0);
+    t[1] = ptx::mad_hi_cc(m, FP_MOD[0], t[1]);
+#pragma unroll
+    for (int j = 1; j < 11; ++j) t[j + 1] = ptx::madc_hi_cc(m, FP_MOD[j], t[j + 1]);
+    t[12] = ptx::madc_hi(m, FP_MOD[11], t[12]);
+    // t /= 2^32
+#pragma unroll
+    for (int j = 0; j < 12; ++j) t[j] = t[j + 1];
+    t[12] = 0;
+  }
+  fp_csub_cc(r, t);
+}
+
+// (a + b) mod p; a + b < 2p < 2^384 leaves no carry out of the top limb
+__device__ __forceinline__ void fp_add_cc(uint32_t* r, const uint32_t* a, const uint32_t* b) {
+  uint32_t s[12];
+  s[0] = ptx::add_cc(a[0], b[0]);
+#pragma unroll
+  for (int j = 1; j < 12; ++j) s[j] = ptx::addc_cc(a[j], b[j]);
+  fp_csub_cc(r, s);
+}
+
+// (a - b) mod p
+__device__ __forceinline__ void fp_sub_cc(uint32_t* r, const uint32_t* a, const uint32_t* b) {
+  uint32_t d[12];
+  d[0] = ptx::sub_cc(a[0], b[0]);
+#pragma unroll
+  for (int j = 1; j < 12; ++j) d[j] = ptx::subc_cc(a[j], b[j]);
+  const uint32_t mask = ptx::subc(0, 0);  // all ones on underflow: add p back
+  r[0] = ptx::add_cc(d[0], FP_MOD[0] & mask);
+#pragma unroll
+  for (int j = 1; j < 11; ++j) r[j] = ptx::addc_cc(d[j], FP_MOD[j] & mask);
+  r[11] = ptx::addc(d[11], FP_MOD[11] & mask);
+}
+
+template <>
+__device__ __forceinline__ void fmul<FpField>(uint32_t* r, const uint32_t* a, const uint32_t* b) {
+  fp_mul_cc(r, a, b);
+}
+
+template <>
+__device__ __forceinline__ void fadd<FpField>(uint32_t* r, const uint32_t* a, const uint32_t* b) {
+  fp_add_cc(r, a, b);
+}
+
+template <>
+__device__ __forceinline__ void fsub<FpField>(uint32_t* r, const uint32_t* a, const uint32_t* b) {
+  fp_sub_cc(r, a, b);
+}
+
 template <class F>
 __device__ __forceinline__ void fcopy(uint32_t* r, const uint32_t* a) {
 #pragma unroll
@@ -153,22 +308,6 @@ template <class F>
 __device__ __forceinline__ void fone(uint32_t* r) {
 #pragma unroll
   for (int j = 0; j < F::N; ++j) r[j] = F::one(j);
-}
-
-template <class F>
-__device__ __forceinline__ bool fis_zero(const uint32_t* a) {
-  uint32_t acc = 0;
-#pragma unroll
-  for (int j = 0; j < F::N; ++j) acc |= a[j];
-  return acc == 0;
-}
-
-// r = mask ? a : b
-template <class F>
-__device__ __forceinline__ void fselect(uint32_t* r, bool mask, const uint32_t* a,
-                                        const uint32_t* b) {
-#pragma unroll
-  for (int j = 0; j < F::N; ++j) r[j] = mask ? a[j] : b[j];
 }
 
 // 16-bit digit planes (int64, the PyTorch layout) <-> 32-bit limbs

@@ -2,8 +2,9 @@
 //
 // RCB16 Algorithm 7 with a = 0, 3b = 12, in the grouping of
 // curves/ops.py::padd, so every result is the same projective
-// representative the plain PyTorch formulas give.  Used by the MSM kernels
-// (msm.cu); the G1 ladder runs its own round schedule (schedule_g1.cuh).
+// representative the plain PyTorch formulas give.  Used by K7 (msm.cu); the
+// G1 ladder and K8 run their own round schedules (schedule_g1.cuh,
+// schedule_comb.cuh).
 
 #pragma once
 
@@ -45,13 +46,23 @@ __device__ __forceinline__ void mul12(uint32_t* r, const uint32_t* a) {
   fadd<FpField>(r, a8, a4);
 }
 
-// RCB16 Algorithm 7 (a = 0) after its six products m0..m5 =
-// X1X2, Y1Y2, Z1Z2, (X1+Y1)(X2+Y2), (Y1+Z1)(Y2+Z2), (X1+Z1)(X2+Z2)
-__device__ __forceinline__ G1 g1_add_tail(const uint32_t* m0, const uint32_t* m1,
-                                          const uint32_t* m2, const uint32_t* m3,
-                                          const uint32_t* m4, const uint32_t* m5) {
+// RCB16 Algorithm 7 (a = 0), the grouping of curves/ops.py::padd
+__device__ __forceinline__ G1 g1_add(const G1& p, const G1& q) {
   using Fp = FpField;
-  uint32_t s1[12], t3[12], t4[12], ty[12], t2[12], t0[12], z3[12], t1[12], y3[12];
+  uint32_t s1[12], s2[12], m0[12], m1[12], m2[12], m3[12], m4[12], m5[12];
+  fmul<Fp>(m0, p.x, q.x);
+  fmul<Fp>(m1, p.y, q.y);
+  fmul<Fp>(m2, p.z, q.z);
+  fadd<Fp>(s1, p.x, p.y);
+  fadd<Fp>(s2, q.x, q.y);
+  fmul<Fp>(m3, s1, s2);
+  fadd<Fp>(s1, p.y, p.z);
+  fadd<Fp>(s2, q.y, q.z);
+  fmul<Fp>(m4, s1, s2);
+  fadd<Fp>(s1, p.x, p.z);
+  fadd<Fp>(s2, q.x, q.z);
+  fmul<Fp>(m5, s1, s2);
+  uint32_t t3[12], t4[12], ty[12], t2[12], t0[12], z3[12], t1[12], y3[12];
   fadd<Fp>(s1, m0, m1);
   fsub<Fp>(t3, m3, s1);
   fadd<Fp>(s1, m1, m2);
@@ -76,55 +87,6 @@ __device__ __forceinline__ G1 g1_add_tail(const uint32_t* m0, const uint32_t* m1
   fadd<Fp>(r.y, n3, n2);
   fadd<Fp>(r.z, n5, n4);
   return r;
-}
-
-// RCB16 Algorithm 7 (a = 0), the grouping of curves/ops.py::padd
-__device__ __forceinline__ G1 g1_add(const G1& p, const G1& q) {
-  using Fp = FpField;
-  uint32_t s1[12], s2[12], m0[12], m1[12], m2[12], m3[12], m4[12], m5[12];
-  fmul<Fp>(m0, p.x, q.x);
-  fmul<Fp>(m1, p.y, q.y);
-  fmul<Fp>(m2, p.z, q.z);
-  fadd<Fp>(s1, p.x, p.y);
-  fadd<Fp>(s2, q.x, q.y);
-  fmul<Fp>(m3, s1, s2);
-  fadd<Fp>(s1, p.y, p.z);
-  fadd<Fp>(s2, q.y, q.z);
-  fmul<Fp>(m4, s1, s2);
-  fadd<Fp>(s1, p.x, p.z);
-  fadd<Fp>(s2, q.x, q.z);
-  fmul<Fp>(m5, s1, s2);
-  return g1_add_tail(m0, m1, m2, m3, m4, m5);
-}
-
-// Algorithm 7 with q = (x2 : y2 : Z2), Z2 = flag ? 1 : 0 (Montgomery):
-// Z1 Z2 becomes a select, 11 products instead of 12, and the result is the
-// one g1_add gives for that q, since Z1 * 1 = Z1 exactly.  A clear flag
-// makes q the identity (the comb stores those rows as (0, 1)).
-// (pallas_mont.py::G1Vec.padd_mixed_flag)
-__device__ __forceinline__ G1 g1_add_mixed_flag(const G1& p, const uint32_t* x2,
-                                                const uint32_t* y2, bool flag) {
-  using Fp = FpField;
-  uint32_t z2[12], s1[12], s2[12], m0[12], m1[12], m2[12], m3[12], m4[12], m5[12];
-  if (flag) {
-    fone<Fp>(z2);
-    fcopy<Fp>(m2, p.z);
-  } else {
-    fzero<Fp>(z2);
-    fzero<Fp>(m2);
-  }
-  fmul<Fp>(m0, p.x, x2);
-  fmul<Fp>(m1, p.y, y2);
-  fadd<Fp>(s1, p.x, p.y);
-  fadd<Fp>(s2, x2, y2);
-  fmul<Fp>(m3, s1, s2);
-  fadd<Fp>(s1, p.y, p.z);
-  fadd<Fp>(s2, y2, z2);
-  fmul<Fp>(m4, s1, s2);
-  fadd<Fp>(s1, p.x, p.z);
-  fadd<Fp>(s2, x2, z2);
-  fmul<Fp>(m5, s1, s2);
-  return g1_add_tail(m0, m1, m2, m3, m4, m5);
 }
 
 }  // namespace kt

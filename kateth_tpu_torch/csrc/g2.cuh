@@ -1,5 +1,5 @@
 // G2 (the twist, over Fp2) complete projective point formulas for one CUDA
-// thread, over the tower of tower.cuh.
+// thread, over the Fp2 of tower.cuh.
 //
 // RCB16 Algorithms 7 and 9 with a = 0, 3b = 12 xi, in the grouping of
 // curves/ops.py::padd and pdouble, so every result is the same projective

@@ -102,11 +102,6 @@ __global__ void __launch_bounds__(kThreads)
 constexpr int kLadderTeams = 8;  // lanes per block
 constexpr int kLadderThreads = kLadderTeams * sched_g1_ladder::kTeamThreads;
 
-struct TeamSync {
-  unsigned mask;
-  __device__ __forceinline__ void operator()() const { __syncwarp(mask); }
-};
-
 __global__ void __launch_bounds__(kLadderThreads)
     g1_ladder_kernel(const int64_t* __restrict__ px, const int64_t* __restrict__ py,
                      const int64_t* __restrict__ pz, const int64_t* __restrict__ scalars,

@@ -32,10 +32,6 @@ namespace {
 
 constexpr unsigned long long kXAbs = 0xd201000000010000ull;  // |x|, MSB first
 
-struct BlockSync {
-  __device__ __forceinline__ void operator()() const { __syncthreads(); }
-};
-
 __global__ void __launch_bounds__(sched_miller::kTeamThreads)
     miller_kernel(const int64_t* __restrict__ xp_d, const int64_t* __restrict__ yp_d,
                   const int64_t* __restrict__ xq_d, const int64_t* __restrict__ yq_d,

@@ -2,16 +2,17 @@
 //
 // Operands arrive in the PyTorch layout: int64 tensors of 16-bit digits,
 // (rows, 24) per coordinate, digits contiguous.  A chain is g consecutive
-// rows; each thread owns one chain, keeps its running sum in registers and
-// adds the chain's points in order with the complete formulas of g1.cuh,
-// so the projective results are bit-identical to the plain loops of
-// curves/cuda_msm.py.
+// rows, added in order with the complete formulas of curves/ops.py (K7:
+// one thread a chain, g1.cuh; K8: a team of 8 threads a chain, a round
+// schedule), so the projective results are bit-identical to the plain
+// loops of curves/cuda_msm.py.
 //
 // C interface, bound with ctypes by kateth_tpu_torch/cuda_lib.py.
 
 #include <cuda_runtime.h>
 
 #include "g1.cuh"
+#include "schedule_comb.cuh"
 
 using namespace kt;
 
@@ -54,31 +55,72 @@ __global__ void __launch_bounds__(kThreads)
 // ---------------------------------------------------------------------------
 // K8 comb_chain_sum.  Replaces kateth_tpu/curves/pallas_msm.py::
 // _comb_chain_sum_flat: the sum of each chain of g = 32 gathered affine
-// comb rows, a row with a zero flag being the identity, by the 11-product
-// mixed addition (G1Vec.padd_mixed_flag).
-// Bound: operations.  At the mainnet commit (64 blobs x 4096 rows, 8,192
-// chains, once per comb column) it does 32 mixed additions per chain,
-// about 0.87 G wide multiplies, against 0.11 GB read.
-// Design: one thread per chain, 128 blocks of 64 threads; the affine rows
-// and flags are read once, only the three chain totals are written.
+// comb rows, a row with a zero flag being the identity: ops.padd with
+// Z2 = flag ? 1 : 0, in order.
+// Bound: operations.  At the mainnet commit (all 22 comb columns of 64
+// blobs x 4096 rows in one launch, 180,224 chains) it does 32 additions
+// per chain, about 19 G wide multiplies, against 2.2 GB read.
+// Design: a team of 8 threads per chain, 4 chains to a warp, 8 to a
+// block, so each thread keeps few registers and an SM holds many warps
+// to hide the carry chains' latency.  A row's addition is the round
+// schedule of schedule_comb.cuh (team_schedule.py traces ops.padd with
+// Z2 = SEL(one, zero) by the row's flag: 2 product rounds of 6 products),
+// run by team.cuh's interpreter; the sum and the row live in shared memory
+// as Fp slots.  While the team adds row k, each of its threads has its
+// share of row k + 1 in flight (three 16-byte pieces of x or y) and
+// stores it into the row's slots after the program.
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(kThreads)
+constexpr int kCombTeams = 8;  // chains per block
+constexpr int kCombThreads = kCombTeams * sched_comb::kTeamThreads;
+
+__global__ void __launch_bounds__(kCombThreads)
     comb_chain_sum_kernel(const int64_t* __restrict__ x, const int64_t* __restrict__ y,
                           const int64_t* __restrict__ flags, int64_t* __restrict__ ox,
                           int64_t* __restrict__ oy, int64_t* __restrict__ oz, int64_t chains,
                           int g) {
-  int64_t c = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= chains) return;
-  G1 acc = g1_identity();
+  using namespace sched_comb;
+  static_assert(kTeamThreads == 8, "four teams to a warp");
+  __shared__ __align__(16) Slot slots[kCombTeams][kSlots];
+  const int team = threadIdx.x / kTeamThreads, t = threadIdx.x % kTeamThreads;
+  const int64_t c = (int64_t)blockIdx.x * kCombTeams + team;
+  if (c >= chains) return;  // whole teams leave together
+  const TeamSync sync{0xffu << (kTeamThreads * (team & 3))};
+  Slot* slot = slots[team];
+  // acc = (0 : 1 : 0) and the constants
+  uint32_t v[12];
+  if (t == 1 || t == 3) fone<FpField>(v);
+  else fzero<FpField>(v);
+  if (t < kSlot_x2) slot_store(slot[t], v);
+  static_assert(kSlot_zero == 0 && kSlot_one == 1 && kSlot_x == 2 && kSlot_y == 3 &&
+                    kSlot_z == 4 && kSlot_x2 == 5,
+                "slots 0-4 hold zero, one and acc = (0 : 1 : 0)");
+  // thread t holds limbs 3q .. 3q + 2 of x2 (t < 4) or y2: digits 6q ..
+  // 6q + 5, three 16-byte pieces of the int64 row
+  const int q = t & 3;
+  const uint4* piece = reinterpret_cast<const uint4*>((t < 4 ? x : y) + c * g * 24 + 6 * q);
+  uint32_t* limbs = slot[t < 4 ? kSlot_x2 : kSlot_y2] + 3 * q;
+  const int64_t* flag = flags + c * g;
+  uint4 r[3];
+#pragma unroll
+  for (int j = 0; j < 3; ++j) r[j] = __ldg(piece + j);
+  bool bit = __ldg(flag) != 0;
   for (int k = 0; k < g; ++k) {
-    int64_t row = c * g + k;
-    uint32_t x2[12], y2[12];
-    load_digits<FpField>(x2, x + row * 24);
-    load_digits<FpField>(y2, y + row * 24);
-    acc = g1_add_mixed_flag(acc, x2, y2, flags[row] != 0);
+#pragma unroll
+    for (int j = 0; j < 3; ++j) limbs[j] = r[j].x | (r[j].z << 16);
+    sync();  // row k is in place
+    const bool row_bit = bit;
+    if (k + 1 < g) {  // row k + 1 in flight while the team adds row k
+#pragma unroll
+      for (int j = 0; j < 3; ++j) r[j] = __ldg(piece + (k + 1) * 12 + j);
+      bit = __ldg(flag + k + 1) != 0;
+    }
+    run_program<Sched>(slot, kProg_comb_step, t, row_bit, sync);
   }
-  g1_store(ox + c * 24, oy + c * 24, oz + c * 24, acc);
+  if (t < 3) {
+    slot_load(v, slot[kSlot_x + t]);
+    store_digits<FpField>((t == 0 ? ox : t == 1 ? oy : oz) + c * 24, v);
+  }
 }
 
 }  // namespace
@@ -95,14 +137,15 @@ int kateth_chain_prefix(const int64_t* px, const int64_t* py, const int64_t* pz,
   return (int)cudaGetLastError();
 }
 
-// x, y: (chains * g, 24) affine rows; flags: (chains * g,) nonzero = a point;
-// ox, oy, oz: (chains, 24) projective chain sums
+// x, y: (chains * g, 24) affine rows, 16-byte aligned; flags: (chains * g,)
+// nonzero = a point; ox, oy, oz: (chains, 24) projective chain sums
 int kateth_comb_chain_sum(const int64_t* x, const int64_t* y, const int64_t* flags, int64_t* ox,
                           int64_t* oy, int64_t* oz, int64_t chains, int g, void* stream) {
   if (g < 1) return (int)cudaErrorInvalidValue;
   if (chains <= 0) return 0;
-  comb_chain_sum_kernel<<<blocks_for(chains), kThreads, 0, (cudaStream_t)stream>>>(
-      x, y, flags, ox, oy, oz, chains, g);
+  const unsigned int blocks = (unsigned int)((chains + kCombTeams - 1) / kCombTeams);
+  comb_chain_sum_kernel<<<blocks, kCombThreads, 0, (cudaStream_t)stream>>>(x, y, flags, ox, oy, oz,
+                                                                           chains, g);
   return (int)cudaGetLastError();
 }
 

@@ -19,6 +19,10 @@ constexpr int kPrograms = 1;
 constexpr int kRounds = 13;
 // the Fp products of each program
 constexpr int kProgramProducts[1] = {20};
+// the product rounds of each program
+constexpr int kProgramProductRounds[1] = {4};
+// the programs by name
+constexpr int kProg_g1_step = 0;
 // the named input slots [0, kInputs): constants, the step's state, operands
 constexpr int kInputs = 8;
 constexpr int kSlot_zero = 0;

@@ -159,7 +159,9 @@ def hard_part_plain(f):
 
 
 def hard_part(f):
-    """The hard part for f (..., 2, 3, 2, 24) after the easy part."""
+    """The hard part for f (..., 2, 3, 2, 24) after the easy part: kernel
+    K5 (a block of threads per lane) on a CUDA tensor.  f must lie in the
+    cyclotomic subgroup, as both versions square by Granger-Scott."""
     if f.device.type == "cpu":
         return hard_part_plain(f)
     if f.shape[-4:] != (2, 3, 2, FP.n_digits):

@@ -11,8 +11,10 @@ so that with the scalar bits in h rows of stride d (bit t + k d):
     col_t(i) = sum_k bit_{t + k d}(s_i) << k.
 
 Per column the work is one gather of table rows and a plain sum of N
-points: kernel K8 sums chains of g consecutive rows (cuda_msm), then a
-halving tree sums the chains; d - 1 doublings in all.
+points.  A commit gathers the rows of all d columns at once, kernel K8
+sums chains of g consecutive rows of every column in one launch
+(cuda_msm), one halving tree sums each column's chains, and the d column
+sums combine MSB first with d - 1 doublings.
 
 The table is affine, as two planes x and y of (N 2^h, 24): at mainnet
 (N = 4096, h = 12) 16,777,216 rows, 3.2 GB each as int64 digit planes.
@@ -121,21 +123,20 @@ def commit(table, scalar_digits: torch.Tensor, h: int, n: int):
     """Batched fixed-base commitment sum_i scalars[..., i] P_i.
 
     table: the (x, y) plane pair of build_table; scalar_digits: PLAIN Fr
-    digit planes (*batch, n, 16).  Chains of cuda_msm.COMB_CHAIN rows
-    (capped at n) are summed by K8, then halved over.  Returns a projective
-    tuple of (*batch, 24)."""
+    digit planes (*batch, n, 16).  The rows of all d columns are gathered
+    at once, K8 sums their chains of cuda_msm.COMB_CHAIN rows (capped at
+    n) in one launch, one halving sum per column follows, then the column
+    sums combine MSB first.  Returns a projective tuple of (*batch, 24)."""
     table_x, table_y = table
     d = comb_dims(h)
     g = min(cuda_msm.COMB_CHAIN, n)
     batch = scalar_digits.shape[:-2]
     dev = scalar_digits.device
     cols = column_digits(scalar_digits, h, d).reshape(d, -1, n)  # (d, B, n)
-    base = torch.arange(n, device=dev) << h  # row offset of each point
+    idx = cols + (torch.arange(n, device=dev) << h)  # each point's row
+    chains = cuda_msm.comb_chain_sum(table_x[idx], table_y[idx], cols != 0, g)  # (d, B, n/g)
+    sums = msm.halving_sum(F1, chains, axis=2)  # (d, B)
     acc = ops.identity(F1, (cols.shape[1],), dev)
     for t in range(d - 1, -1, -1):  # MSB column first
-        col = cols[t]
-        idx = col + base
-        chains = cuda_msm.comb_chain_sum(table_x[idx], table_y[idx], col != 0, g)
-        s = msm.halving_sum(F1, chains, axis=1)
-        acc = ops.padd(F1, ops.pdouble(F1, acc), s)
+        acc = ops.padd(F1, ops.pdouble(F1, acc), tuple(c[t] for c in sums))
     return tuple(c.reshape(*batch, FP.n_digits) for c in acc)

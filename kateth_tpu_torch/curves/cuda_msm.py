@@ -7,8 +7,9 @@ version.
 Both kernels (csrc/msm.cu) give each thread one chain of g consecutive
 point rows of the digit plane layout (rows, 24) and add the chain's points
 in order with the complete formulas, so the plain versions, loops of
-ops.padd in the same order, give the same projective digits.  On a CPU
-tensor a wrapper runs the plain version instead.
+ops.padd in the same order, give the same projective digits.  K8 stages
+its rows with 16-byte copies, so its wrapper hands it 16-byte aligned
+rows.  On a CPU tensor a wrapper runs the plain version instead.
 """
 
 from __future__ import annotations
@@ -102,12 +103,13 @@ def comb_chain_sum(x: torch.Tensor, y: torch.Tensor, flags: torch.Tensor, g: int
     """Chain sums of gathered comb rows (kernel K8 on a CUDA tensor).
 
     x, y: (..., N, 24) affine Montgomery rows; flags: (..., N), nonzero for
-    a point.  Returns a projective tuple of (..., N/g, 24) chain totals."""
+    a point.  Returns a projective tuple of (..., N/g, 24) chain totals.
+    comb.commit calls it once for all comb columns: (d, B, N, 24)."""
     if y.shape != x.shape or flags.shape != x.shape[:-1]:
         raise ValueError("comb_chain_sum takes x, y (..., N, 24) and flags (..., N)")
     if x.device.type == "cpu":
         return comb_chain_sum_plain(x, y, flags, g)
-    x, y = x.contiguous(), y.contiguous()
+    x, y = (c.contiguous() if c.data_ptr() % 16 == 0 else c.clone() for c in (x, y))
     fl = flags.to(torch.int64).contiguous()
     shape = _chains(x, g).shape[:-2]
     outs = [torch.empty((*shape, FP.n_digits), dtype=torch.int64, device=x.device) for _ in range(3)]

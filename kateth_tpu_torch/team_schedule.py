@@ -1,12 +1,17 @@
-"""Round schedules of the team kernels K3 (G1 ladder) and K4 (Miller loop).
+"""Round schedules of the team kernels K3 (G1 ladder), K4 (Miller loop),
+K5 (hard part of the final exponentiation) and K8 (comb chain sum).
 
 A team of threads works on one lane and runs each step's independent Fp
 operations in parallel, round by round.  This module writes each step as
 rounds of instructions into a header in csrc/ that the kernels include:
 
-  schedule_g1.cuh      one ladder bit of kernels.cu's g1_ladder_kernel
-  schedule_miller.cuh  one bit of |x| of miller.cu's miller_kernel, in two
-                       programs: bit 0 and bit 1
+  schedule_g1.cuh         one ladder bit of kernels.cu's g1_ladder_kernel
+  schedule_miller.cuh     one bit of |x| of miller.cu's miller_kernel, in two
+                          programs: bit 0 and bit 1
+  schedule_hard_part.cuh  hard_part.cu's hard_part_kernel: a cyclotomic
+                          squaring, a squaring and a product (a set bit of
+                          |x|), and the five steps between the |x|-powers
+  schedule_comb.cuh       one row of msm.cu's comb_chain_sum_kernel
 
 The headers are committed; the build only compiles them.  After editing
 this module or the formulas it traces, rewrite them from the repository
@@ -17,26 +22,29 @@ root:
 An instruction is (op, dst, a, b) over Fp slots of 12 32-bit limbs in
 shared memory: MUL dst = a b (Montgomery), ADD dst = a + b, SUB dst = a - b,
 SMALL dst = b a for a small constant b, SEL dst = bit ? a : b with the
-lane's scalar bit.  A product round holds MUL only; a linear round
-holds the rest, so a warp never diverges between the two kinds.  No
-instruction reads a slot that another instruction of its round writes, so
-a round's instructions may run in any order, on any thread.
+lane's scalar bit, COPY dst = a.  A product round holds MUL only, at most
+one a thread of the team; a linear round holds the rest, so a warp never
+diverges between the two kinds.  No instruction reads a slot that another
+instruction of its round writes, so a round's instructions may run in any
+order, on any thread.
 
 The point formulas are traced: curves/ops.py's pdouble and padd run on a
 CurveField whose values are node ids (graph_field), so they build the
 graph where the plain versions compute.  The line functions and the tower
-products, which take no field object, are written out here over Fp:
+operations, which take no field object, are written out here over Fp:
 cuda_pairing.py _line_dbl, _line_add and _merge_lines, and fields/fp6.py
-and fp12.py mul and sqr with their Karatsuba grouping.  Every slot holds a
-canonical field element, so any sequence of operations that computes the
-same field elements gives the same bits as the plain versions: products by
-the constants 0 and 1 are folded away, equal operations are computed once,
-and products run as early as their operands allow (linear operations as
-late as their users allow).
+and fp12.py mul, sqr, conj, frob and the Granger-Scott cyc_sqr.  Every
+slot holds a canonical field element, so any sequence of operations that
+computes the same field elements gives the same bits as the plain
+versions: products by the constants 0 and 1 are folded away, equal
+operations are computed once, and products run as early as their operands
+and the team's width allow (linear operations as late as their users
+allow).  cyc_sqr is the square only on the cyclotomic subgroup, where the
+hard part's values lie.
 
 tests/test_torch_team_schedule.py runs the schedules with the plain Fp
-operations and holds them bit for bit against the plain ladder and the
-plain Miller loop.
+operations and holds them bit for bit against the plain ladder, the plain
+Miller loop, the plain hard part and the plain chain sums.
 """
 
 from __future__ import annotations
@@ -47,9 +55,11 @@ from dataclasses import dataclass
 import torch
 
 from .curves import ops
+from .fields import fp12 as fp12_plain
+from .fields import limbs as L
 
-MUL, ADD, SUB, SMALL, SEL = range(5)
-OP_NAMES = ("MUL", "ADD", "SUB", "SMALL", "SEL")
+MUL, ADD, SUB, SMALL, SEL, COPY = range(6)
+OP_NAMES = ("MUL", "ADD", "SUB", "SMALL", "SEL", "COPY")
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 
@@ -112,6 +122,10 @@ class Graph:
     def sel(self, a: int, b: int) -> int:
         return a if a == b else self._node((SEL, a, b))
 
+    def copy(self, a: int) -> int:
+        """a in a second slot: for a value that two state outputs take."""
+        return self._node((COPY, a, None))
+
 
 # --- the tower over Fp: Fp2 = (c0, c1), Fp6 = 3 Fp2, Fp12 = 2 Fp6 ----------
 
@@ -136,6 +150,10 @@ def f2_small(g, a, k):
     return (g.small(a[0], k), g.small(a[1], k))
 
 
+def f2_conj(g, a):
+    return (a[0], g.sub(g.ZERO, a[1]))
+
+
 def f2_mul(g, a, b):
     """Karatsuba (fields/fp2.py mul); an operand in Fp (c1 = 0) scales."""
     if b[1] == g.ZERO:
@@ -148,12 +166,23 @@ def f2_mul(g, a, b):
     return (g.sub(t0, t1), g.sub(t2, g.add(t0, t1)))
 
 
+def f2_sqr(g, a):
+    """fields/fp2.py sqr: (a0 + a1)(a0 - a1) + 2 a0 a1 u."""
+    p = g.mul(g.add(a[0], a[1]), g.sub(a[0], a[1]))
+    q = g.mul(a[0], a[1])
+    return (p, g.add(q, q))
+
+
 def f6_add(g, a, b):
     return tuple(f2_add(g, x, y) for x, y in zip(a, b))
 
 
 def f6_sub(g, a, b):
     return tuple(f2_sub(g, x, y) for x, y in zip(a, b))
+
+
+def f6_neg(g, a):
+    return tuple(f2_neg(g, x) for x in a)
 
 
 def f6_mul_by_v(g, a):
@@ -186,6 +215,39 @@ def f12_sqr(g, a):
     t = f6_mul(g, a[0], a[1])
     s = f6_mul(g, f6_add(g, a[0], a[1]), f6_add(g, a[0], f6_mul_by_v(g, a[1])))
     return (f6_sub(g, s, f6_add(g, t, f6_mul_by_v(g, t))), f6_add(g, t, t))
+
+
+def f12_conj(g, a):
+    """fields/fp12.py conj: a0 - a1 w."""
+    return (a[0], f6_neg(g, a[1]))
+
+
+def f12_cyc_sqr(g, a):
+    """fields/fp12.py cyc_sqr (Granger-Scott), the square on the cyclotomic
+    subgroup: 9 Fp2 squares."""
+    (a0, a1, a2), (b0, b1, b2) = a
+    lo, hi = (b1, a2, b2), (a0, b0, a1)
+    tl = [f2_sqr(g, x) for x in lo]
+    th = [f2_sqr(g, x) for x in hi]
+    ts = [f2_sqr(g, f2_add(g, x, y)) for x, y in zip(lo, hi)]
+    cross = [f2_sub(g, s, f2_add(g, x, y)) for s, x, y in zip(ts, tl, th)]
+    u = [f2_add(g, f2_xi(g, x), y) for x, y in zip(tl, th)]
+    d0 = [f2_sub(g, x, c) for x, c in zip(u, (a0, a1, a2))]
+    c0 = tuple(f2_add(g, f2_add(g, d, d), x) for d, x in zip(d0, u))
+    t = (f2_xi(g, cross[2]), cross[0], cross[1])
+    d1 = [f2_add(g, x, c) for x, c in zip(t, (b0, b1, b2))]
+    c1 = tuple(f2_add(g, f2_add(g, d, d), x) for d, x in zip(d1, t))
+    return (c0, c1)
+
+
+def f12_frob(g, a, gamma):
+    """fields/fp12.py frob: conjugate every Fp2 coordinate, then twist the
+    coordinates (c0.1, c0.2, c1.0, c1.1, c1.2) by gamma (2, 4, 1, 3, 5);
+    gamma[i] is the node pair of gamma_(i+1)."""
+    coords = [f2_conj(g, a[j // 3][j % 3]) for j in range(6)]
+    for j, i in zip(range(1, 6), (1, 3, 0, 2, 4)):
+        coords[j] = f2_mul(g, coords[j], gamma[i])
+    return (tuple(coords[:3]), tuple(coords[3:]))
 
 
 # --- curves/ops.py traced: a CurveField over node ids ----------------------
@@ -262,14 +324,42 @@ def g1_step() -> tuple[Graph, dict[str, int]]:
     return g, {n: g.sel(s[i], dbl[i]) for i, n in enumerate(G1_STATE)}
 
 
+COMB_INPUTS = [*G1_STATE, "x2", "y2"]
+
+
+def comb_step() -> tuple[Graph, dict[str, int]]:
+    """acc = acc + (x2 : y2 : z2) with z2 = bit ? 1 : 0, the row's flag
+    (cuda_msm.comb_chain_sum_plain)."""
+    g = Graph(COMB_INPUTS)
+    acc = tuple(g.inp(n) for n in G1_STATE)
+    s = _padd(g, 1, acc, (g.inp("x2"), g.inp("y2"), g.sel(g.ONE, g.ZERO)))
+    return g, dict(zip(G1_STATE, s))
+
+
 def _fp2_names(stem: str) -> list[str]:
     return [f"{stem}_{i}" for i in range(2)]
 
 
-#: the step state: T on the twist, projective; f in Fp12, coefficient
-#: m = (w 3 + v) 2 + u (the digit-plane order of (2, 3, 2, 24))
+def _f12_names(stem: str) -> list[str]:
+    """An Fp12 value's 12 coefficients m = (w 3 + v) 2 + u (the digit-plane
+    order of (2, 3, 2, 24))."""
+    return [f"{stem}_{m}" for m in range(12)]
+
+
+def _f12_in(g: Graph, stem: str) -> tuple:
+    """The Fp12 input `stem` as two Fp6 of three Fp2 node pairs."""
+    v = [g.inp(n) for n in _f12_names(stem)]
+    return tuple(tuple((v[(w * 3 + k) * 2], v[(w * 3 + k) * 2 + 1]) for k in range(3))
+                 for w in range(2))
+
+
+def _f12_flat(a) -> list[int]:
+    return [c for half in a for x in half for c in x]
+
+
+#: the step state: T on the twist, projective; f in Fp12
 T_NAMES = [n for c in ("tx", "ty", "tz") for n in _fp2_names(c)]
-F_NAMES = [f"f_{m}" for m in range(12)]
+F_NAMES = _f12_names("f")
 MILLER_STATE = [*T_NAMES, *F_NAMES]
 MILLER_INPUTS = [*MILLER_STATE, "xp", "yp", *_fp2_names("xq"), *_fp2_names("yq")]
 
@@ -281,10 +371,7 @@ def miller_step(bit: int) -> tuple[Graph, dict[str, int]]:
     g = Graph(MILLER_INPUTS)
     two = lambda stem: tuple(g.inp(n) for n in _fp2_names(stem))  # noqa: E731
     T = (two("tx"), two("ty"), two("tz"))
-    f = tuple(
-        tuple((g.inp(f"f_{(w * 3 + v) * 2}"), g.inp(f"f_{(w * 3 + v) * 2 + 1}")) for v in range(3))
-        for w in range(2)
-    )
+    f = _f12_in(g, "f")
     xp, yp = (g.inp("xp"), g.ZERO), (g.inp("yp"), g.ZERO)
     xq, yq = two("xq"), two("yq")
     zero2, one2 = (g.ZERO, g.ZERO), (g.ONE, g.ZERO)
@@ -317,13 +404,80 @@ def miller_step(bit: int) -> tuple[Graph, dict[str, int]]:
     bc = sub(mul(add(b1, c1), add(b2, c2)), add(bb, cc))
     line = ((add(aa, f2_xi(g, cc)), ab, bb), (zero2, ac, bc))
     f = f12_mul(g, f12_sqr(g, f), line)
+    out = {n: T[i // 2][i % 2] for i, n in enumerate(T_NAMES)}
+    out.update(zip(F_NAMES, _f12_flat(f)))
+    return g, out
+
+
+def _hard_part_consts() -> dict[str, int]:
+    """The nonzero coefficients of the Frobenius gammas, each value once:
+    gamma{i}_{c} -> its Montgomery value."""
+    out: dict[str, int] = {}
+    for i, gamma in enumerate(fp12_plain.GAMMA):
+        for c in range(2):
+            v = L.digits_to_int(gamma[c])
+            if v and v not in out.values():
+                out[f"gamma{i + 1}_{c}"] = v
+    return out
+
+
+HARD_PART_CONSTS = _hard_part_consts()
+#: the step state: acc (the running power), g (the power's base), f (the
+#: input, then f^3), s (the factor frob^2(t2) conj(t2) f^3)
+HARD_PART_STATE = [n for stem in ("acc", "g", "f", "s") for n in _f12_names(stem)]
+HARD_PART_INPUTS = [*HARD_PART_CONSTS, *HARD_PART_STATE]
+#: the programs, in their order in the header: hard_part.cu drives each
+#: of the five |x|-powers as acc = g, then for the bits of |x| after its
+#: leading one sqr or sqr_mul, then the next glue step
+HARD_PART_PROGRAMS = ("sqr", "sqr_mul", "glue0", "glue1", "glue2", "glue3", "glue4")
+
+
+def hard_part_step(name: str) -> tuple[Graph, dict[str, int]]:
+    """One program of the hard part (cuda_pairing.hard_part_plain):
+
+      sqr      acc = cyc_sqr(acc)
+      sqr_mul  acc = cyc_sqr(acc) g
+      glue0    t0 = conj(acc) conj(f): g = acc = t0; f = cyc_sqr(f) f
+      glue1    t1 = conj(acc) conj(g): g = acc = t1
+      glue2    t2 = conj(acc) frob(g): g = acc = t2;
+               s = frob(frob(t2)) conj(t2) f
+      glue3    g = acc
+      glue4    acc = acc s
+
+    After a power's loop, acc = g^|x|, and conj(acc) = g^x.  The fourth
+    power runs on x(t2) conjugated, so glue3 and glue4 take acc as it is:
+    conj(a)^|x| = conj(a^|x|), and the two conjugations of x(x(t2)) cancel.
+    The result is t3 f^3 of the plain chain, grouped as x(x(t2)) s."""
+    g = Graph(HARD_PART_INPUTS)
+    node_of = {v: g.inp(n) for n, v in HARD_PART_CONSTS.items()}
+    gamma = [tuple(node_of.get(L.digits_to_int(gm[c]), g.ZERO) for c in range(2))
+             for gm in fp12_plain.GAMMA]
+    acc, base, f, s = (_f12_in(g, stem) for stem in ("acc", "g", "f", "s"))
+    mul = lambda a, b: f12_mul(g, a, b)  # noqa: E731
+    conj = lambda a: f12_conj(g, a)  # noqa: E731
+    new = {}
+    if name == "sqr":
+        new["acc"] = f12_cyc_sqr(g, acc)
+    elif name == "sqr_mul":
+        new["acc"] = mul(f12_cyc_sqr(g, acc), base)
+    elif name == "glue0":
+        new["g"] = mul(conj(acc), conj(f))
+        new["f"] = mul(f12_cyc_sqr(g, f), f)
+    elif name == "glue1":
+        new["g"] = mul(conj(acc), conj(base))
+    elif name == "glue2":
+        t2 = new["g"] = mul(conj(acc), f12_frob(g, base, gamma))
+        frob2 = f12_frob(g, f12_frob(g, t2, gamma), gamma)
+        new["s"] = mul(mul(frob2, conj(t2)), f)
+    elif name == "glue4":
+        new["acc"] = mul(acc, s)
     out = {}
-    for i, n in enumerate(T_NAMES):
-        out[n] = T[i // 2][i % 2]
-    for w in range(2):
-        for v in range(3):
-            for u in range(2):
-                out[f"f_{(w * 3 + v) * 2 + u}"] = f[w][v][u]
+    for stem, v in new.items():
+        out.update(zip(_f12_names(stem), _f12_flat(v)))
+    if name in ("glue0", "glue1", "glue2"):
+        out.update(zip(_f12_names("acc"), map(g.copy, _f12_flat(new["g"]))))
+    elif name == "glue3":
+        out.update(zip(_f12_names("g"), map(g.copy, _f12_flat(acc))))
     return g, out
 
 
@@ -351,14 +505,15 @@ def _args(node: tuple) -> tuple[int, ...]:
     op, a, b = node
     if op == "in":
         return ()
-    return (a,) if op == SMALL else (a, b)
+    return (a,) if op in (SMALL, COPY) else (a, b)
 
 
 def schedule(g: Graph, outputs: dict[str, int], slot_of: dict[str, int],
-             name: str) -> tuple[Program, int]:
+             name: str, width: int) -> tuple[Program, int]:
     """Rounds for the graph's live nodes and slots for their values.
 
-    Products run at their earliest round.  Between two product rounds lies
+    Products run at their earliest round that holds fewer than `width`
+    products (the team's threads).  Between two product rounds lies
     a gap of linear rounds; each linear operation runs in the latest gap,
     and at the latest level of that gap, that its users allow.  Inputs
     live in their fixed slots (slot_of); a state output is written straight
@@ -378,11 +533,18 @@ def schedule(g: Graph, outputs: dict[str, int], slot_of: dict[str, int],
             users[a].append(n)
     is_out = set(outputs.values())
 
-    # products at the earliest round; pos = round (product) or gap (linear)
+    # products at the earliest round with room; pos = round (product) or
+    # gap (linear)
     pos = {n: 0 for n in live if nodes[n][0] == "in"}
+    filled: dict[int, int] = {}
     for n in order:
         p = max((pos[a] for a in _args(nodes[n])), default=0)
-        pos[n] = p + 1 if nodes[n][0] == MUL else p
+        if nodes[n][0] == MUL:
+            p += 1
+            while filled.get(p, 0) == width:
+                p += 1
+            filled[p] = filled.get(p, 0) + 1
+        pos[n] = p
     depth = max((pos[n] for n in order if nodes[n][0] == MUL), default=0)
     # linear operations at the latest gap, then at the latest level of it
     gap, height = {}, {}
@@ -418,7 +580,7 @@ def schedule(g: Graph, outputs: dict[str, int], slot_of: dict[str, int],
     last_use = {n: max((rnd[u] for u in users[n]), default=-1) for n in live}
     home = {g.inp(s): slot_of[s] for s in slot_of}
     for s, n in outputs.items():
-        assert n not in home and rnd[n] > last_use[g.inp(s)], (name, s, "needs a copy")
+        assert n not in home and rnd[n] > last_use.get(g.inp(s), -1), (name, s, "needs a copy")
         home[n] = slot_of[s]
     free: list[int] = []
     next_slot = len(slot_of)
@@ -438,22 +600,25 @@ def schedule(g: Graph, outputs: dict[str, int], slot_of: dict[str, int],
             op, a, b = nodes[n]
             if op == SMALL:
                 ins.append((op, home[n], home[a], b))
+            elif op == COPY:
+                ins.append((op, home[n], home[a], 0))
             else:
                 ins.append((op, home[n], home[a], home[b]))
         rounds.append((is_mul, ins))
     return Program(name, rounds), next_slot
 
 
-def check_program(p: Program, n_slots: int) -> None:
-    """Each round: one kind, distinct destinations, and no slot both read
-    and written."""
+def check_program(p: Program, n_slots: int, width: int) -> None:
+    """Each round: one kind, distinct destinations, no slot both read and
+    written, and no more products than the team has threads."""
     for is_mul, ins in p.rounds:
         assert ins, p.name
         dst = [i[1] for i in ins]
-        reads = {s for op, _, a, b in ins for s in ((a,) if op == SMALL else (a, b))}
+        reads = {s for op, _, a, b in ins for s in ((a,) if op in (SMALL, COPY) else (a, b))}
         assert len(set(dst)) == len(dst), p.name
         assert not set(dst) & reads, p.name
         assert all((op == MUL) == is_mul for op, *_ in ins), p.name
+        assert not is_mul or len(ins) <= width, p.name
         assert max(dst) < n_slots and max(reads, default=0) < n_slots, p.name
 
 
@@ -466,27 +631,39 @@ class Schedule:
     n_slots: int
     programs: list[Program]
     threads: int  # threads of a team
+    consts: dict[str, int] | None = None  # named constant inputs -> Montgomery value
 
 
-def g1_schedule() -> Schedule:
-    g, out = g1_step()
-    slot_of = {n: i for i, n in enumerate(g.inputs)}
-    prog, n_slots = schedule(g, out, slot_of, "g1_step")
-    check_program(prog, n_slots)
-    return Schedule("g1_ladder", slot_of, n_slots, [prog], 8)
-
-
-def miller_schedule() -> Schedule:
+def _schedule_all(kernel: str, steps: dict, threads: int, consts=None) -> Schedule:
+    """The programs of `steps` (name -> (graph, outputs), graphs over one
+    input list) over one slot file."""
     progs, n_slots = [], 0
-    for bit in (0, 1):
-        g, out = miller_step(bit)
+    for name, (g, out) in steps.items():
         slot_of = {n: i for i, n in enumerate(g.inputs)}
-        prog, n = schedule(g, out, slot_of, f"miller_bit{bit}")
+        prog, n = schedule(g, out, slot_of, name, threads)
         progs.append(prog)
         n_slots = max(n_slots, n)
     for p in progs:
-        check_program(p, n_slots)
-    return Schedule("miller", slot_of, n_slots, progs, 64)
+        check_program(p, n_slots, threads)
+    return Schedule(kernel, slot_of, n_slots, progs, threads, consts)
+
+
+def g1_schedule() -> Schedule:
+    return _schedule_all("g1_ladder", {"g1_step": g1_step()}, 8)
+
+
+def comb_schedule() -> Schedule:
+    return _schedule_all("comb", {"comb_step": comb_step()}, 8)
+
+
+def miller_schedule() -> Schedule:
+    return _schedule_all("miller", {f"miller_bit{b}": miller_step(b) for b in (0, 1)}, 64)
+
+
+def hard_part_schedule() -> Schedule:
+    return _schedule_all(
+        "hard_part", {name: hard_part_step(name) for name in HARD_PART_PROGRAMS}, 64,
+        HARD_PART_CONSTS)
 
 
 # ---------------------------------------------------------------------------
@@ -516,7 +693,7 @@ def emit(s: Schedule) -> str:
         "//",
     ]
     for p in s.programs:
-        widest = max(len(ins) for m, ins in p.rounds if m)
+        widest = max((len(ins) for m, ins in p.rounds if m), default=0)
         lines.append(
             f"// {p.name}: {len(p.rounds)} rounds, {p.n_product_rounds} of them products "
             f"({p.n_products} Fp products, at most {widest} a round)"
@@ -538,11 +715,31 @@ def emit(s: Schedule) -> str:
         "// the Fp products of each program",
         f"constexpr int kProgramProducts[{len(s.programs)}] = {{"
         + ", ".join(str(p.n_products) for p in s.programs) + "};",
+        "// the product rounds of each program",
+        f"constexpr int kProgramProductRounds[{len(s.programs)}] = {{"
+        + ", ".join(str(p.n_product_rounds) for p in s.programs) + "};",
+        "// the programs by name",
+        *(f"constexpr int kProg_{p.name} = {i};" for i, p in enumerate(s.programs)),
         "// the named input slots [0, kInputs): constants, the step's state, operands",
         f"constexpr int kInputs = {len(s.slot_of)};",
     ]
     for name, i in s.slot_of.items():
         lines.append(f"constexpr int {_ident(name)} = {i};")
+    if s.consts:
+        first = s.slot_of[next(iter(s.consts))]
+        assert [s.slot_of[n] for n in s.consts] == list(range(first, first + len(s.consts)))
+        lines += [
+            "",
+            "// the named constants' Montgomery limbs: slot kConst0 + k holds kConstLimbs[k]",
+            f"constexpr int kConst0 = {first};",
+            f"constexpr int kConsts = {len(s.consts)};",
+            f"__constant__ uint32_t kConstLimbs[{len(s.consts)}][12] = {{",
+        ]
+        for name, v in s.consts.items():
+            limbs = [f"0x{(v >> (32 * j)) & 0xFFFFFFFF:08x}u" for j in range(12)]
+            lines.append(f"    // {name}")
+            lines += ["    {" + ", ".join(limbs[:6]) + ",", "     " + ", ".join(limbs[6:]) + "},"]
+        lines.append("};")
     lines += [
         "",
         "// program p runs rounds [kProgram[p], kProgram[p + 1])",
@@ -593,7 +790,12 @@ def _wrap(items: list[str], width: int = 96) -> list[str]:
     return out
 
 
-HEADERS = {"schedule_g1.cuh": g1_schedule, "schedule_miller.cuh": miller_schedule}
+HEADERS = {
+    "schedule_g1.cuh": g1_schedule,
+    "schedule_miller.cuh": miller_schedule,
+    "schedule_hard_part.cuh": hard_part_schedule,
+    "schedule_comb.cuh": comb_schedule,
+}
 
 
 def main() -> None:

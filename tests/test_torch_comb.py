@@ -20,7 +20,7 @@ from kateth_tpu.curves import ops as jops
 from kateth_tpu.oracle import curve as oc
 from kateth_tpu.oracle import field as of
 from kateth_tpu.oracle.kzg import OracleSetup
-from kateth_tpu_torch.curves import comb, cuda_msm, g1, ops
+from kateth_tpu_torch.curves import comb, cuda_msm, g1, msm, ops
 from kateth_tpu_torch.fields import limbs as L
 from kateth_tpu_torch.fields.specs import FP
 from kateth_tpu_torch.kzg import KzgError
@@ -138,3 +138,33 @@ def test_commit_matches_oracle(osetup, table):
     for b in range(2):
         want = jg1.to_oracle(tuple(c[b][None].numpy() for c in got))[0]
         assert oc.g1_eq(want, oc.g1_msm(osetup.g1_lagrange_brp, vals[b]))
+
+
+def test_commit_batched_columns_match_per_column_loop(table):
+    """comb.commit gathers the rows of all d columns at once, sums their
+    chains in one K8 call and one halving sum, then combines the columns;
+    a loop over the columns, MSB first, with a K8 call, a halving sum, a
+    doubling and an addition each, gives the same projective digits.  Four
+    blobs: random scalars, three zero scalars (clear flags), all zero
+    (every chain the identity) and small scalars (only the low columns
+    hold points)."""
+    vals = [[rng.randrange(of.R) for _ in range(N)] for _ in range(4)]
+    vals[1][:3] = [0, 0, 0]
+    vals[2] = [0] * N
+    vals[3] = list(range(1, N + 1))
+    sc = torch.as_tensor(np.stack([planes(row) for row in vals]))
+    got = comb.commit(table, sc, H, N)
+
+    g = min(cuda_msm.COMB_CHAIN, N)
+    cols = comb.column_digits(sc, H, D_COLS)  # (d, 4, N)
+    assert (cols == 0).any() and (cols != 0).any()
+    assert (cols.reshape(D_COLS, 4, N // g, g) == 0).all(-1).any()  # an all-identity chain
+    base = torch.arange(N) << H
+    want = ops.identity(F1, (4,))
+    for t in range(D_COLS - 1, -1, -1):
+        idx = cols[t] + base
+        chains = cuda_msm.comb_chain_sum(table[0][idx], table[1][idx], cols[t] != 0, g)
+        s = msm.halving_sum(F1, chains, axis=1)
+        want = ops.padd(F1, ops.pdouble(F1, want), s)
+    for gc, wc in zip(got, want):
+        assert torch.equal(gc, wc)

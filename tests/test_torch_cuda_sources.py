@@ -51,11 +51,23 @@ def test_field_constants(prefix, modulus, n):
 
 
 def test_frobenius_gammas():
-    want = []
-    for g in fp12.GAMMA:  # (5, 2, 24) Montgomery digits
-        for c in g:
-            want += _limbs(L.digits_to_int(c), 12)
-    assert _array(_read("tower.cuh"), "FP_GAMMA") == want
+    """The hard part's Frobenius constants: named constant slots of
+    schedule_hard_part.cuh, whose limbs the kernel loads from kConstLimbs.
+    Slot gamma{i}_{c} holds coefficient c of gamma_i, and the slots hold
+    every nonzero coefficient's value once."""
+    src = _read("schedule_hard_part.cuh")
+    rows = _array(src, "kConstLimbs")
+    const0 = int(re.search(r"kConst0 = (\d+);", src).group(1))
+    slots = {(int(i), int(c)): int(s)
+             for i, c, s in re.findall(r"kSlot_gamma(\d)_(\d) = (\d+);", src)}
+    assert len(rows) == 12 * len(slots)
+    held = set()
+    for (i, c), slot in slots.items():
+        v = L.digits_to_int(fp12.GAMMA[i - 1][c])  # (5, 2, 24) Montgomery digits
+        assert rows[12 * (slot - const0) : 12 * (slot - const0 + 1)] == _limbs(v, 12), (i, c)
+        held.add(v)
+    assert held == {L.digits_to_int(c) for g in fp12.GAMMA for c in g} - {0}
+    assert len(held) == len(slots)
     assert np.array_equal(fp12.GAMMA[2][0], fp12.GAMMA[2][1])  # gamma_3 = c (1 + u)
 
 

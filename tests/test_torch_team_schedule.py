@@ -1,11 +1,13 @@
-"""The round schedules of the team kernels K3 (G1 ladder) and K4 (Miller
-loop), kateth_tpu_torch/csrc/schedule_{g1,miller}.cuh, on the CPU.
+"""The round schedules of the team kernels K3 (G1 ladder), K4 (Miller
+loop), K5 (hard part) and K8 (comb chain sum), kateth_tpu_torch/csrc/
+schedule_{g1,miller,hard_part,comb}.cuh, on the CPU.
 
 The kernels are small interpreters over these tables, so a wrong slot or
 a wrong formula shows here: the committed headers are what the generator
 emits now, and the tables, run round by round with the plain Fp operations
-of kateth_tpu_torch.fields.limbs, give the plain ladder's and the plain
-Miller loop's digits bit for bit.  No JAX."""
+of kateth_tpu_torch.fields.limbs, give the plain ladder's, the plain
+Miller loop's, the plain hard part's and the plain chain sums' digits bit
+for bit.  No JAX."""
 
 import os
 
@@ -17,8 +19,8 @@ from kateth_tpu_torch import cuda_pairing, host
 from kateth_tpu_torch import team_schedule as gs
 from kateth_tpu_torch.curves import g1 as g1mod
 from kateth_tpu_torch.curves import g2 as g2mod
-from kateth_tpu_torch.curves import ops
-from kateth_tpu_torch.fields import cuda_mont
+from kateth_tpu_torch.curves import cuda_msm, ops
+from kateth_tpu_torch.fields import cuda_mont, fp12
 from kateth_tpu_torch.fields import limbs as L
 from kateth_tpu_torch.fields.specs import FP, FR
 
@@ -55,6 +57,8 @@ def _run(rounds: list, slots: torch.Tensor, bit=None) -> None:
                 v = L.sub(FP, x, slots[b])
             elif op == gs.SMALL:
                 v = L.mul_small(FP, x, b.numpy()[:, None])
+            elif op == gs.COPY:
+                v = x
             else:
                 v = torch.where(bit[None, :, None], x, slots[b])
             writes.append((dst, v))
@@ -76,14 +80,16 @@ def test_committed_header_is_generated(fname):
         assert f.read() == gs.emit(gs.HEADERS[fname]())
 
 
-@pytest.mark.parametrize("make", [gs.g1_schedule, gs.miller_schedule], ids=["g1", "miller"])
+@pytest.mark.parametrize(
+    "make", [gs.g1_schedule, gs.miller_schedule, gs.hard_part_schedule, gs.comb_schedule],
+    ids=["g1", "miller", "hard_part", "comb"])
 def test_product_rounds_fit_the_team(make):
     """Every product round fits the team, so a round is one product deep
     (building the schedule has already run the generator's hazard
     checks)."""
     s = make()
     for p in s.programs:
-        assert max(len(ins) for m, ins in p.rounds if m) <= s.threads
+        assert max((len(ins) for m, ins in p.rounds if m), default=0) <= s.threads
 
 
 def test_g1_schedule_matches_plain_ladder():
@@ -131,3 +137,60 @@ def test_miller_schedule_matches_plain_miller_loop():
     f = slots[[sched.slot_of[f"f_{m}"] for m in range(12)]]
     f = torch.cat([f[:6], L.neg(FP, f[6:])])  # the conjugate
     assert torch.equal(f.movedim(0, 1).reshape(2, 2, 3, 2, FP.n_digits), want)
+
+
+def test_hard_part_schedule_matches_plain_hard_part():
+    """The five |x|-powers of the schedule (sqr or sqr_mul per bit of |x|
+    after its leading one, then a glue program) against
+    cuda_pairing.hard_part_plain on two lanes of cyclotomic elements (random
+    Fp12 values through the easy part): the same Fp12 digits."""
+    rng = np.random.default_rng(0x4850)
+    d = rng.integers(0, 1 << 16, (2, 2, 3, 2, FP.n_digits), dtype=np.int64)
+    d[..., -1] = rng.integers(0, int(FP.mod_digits[-1]), d.shape[:-1])
+    f = torch.as_tensor(d)
+    f = fp12.mul(fp12.conj(f), fp12.inv(f))  # f^(p^6 - 1)
+    f = fp12.mul(fp12.frob(fp12.frob(f)), f)  # ^(p^2 + 1)
+    want = cuda_pairing.hard_part_plain(f)
+
+    sched = gs.hard_part_schedule()
+    coeffs = f.reshape(2, 12, FP.n_digits)  # coefficient m = (w 3 + v) 2 + u
+    values = {n: torch.as_tensor(L.int_to_digits(v, FP.n_digits)) for n, v in sched.consts.items()}
+    for stem in ("acc", "g", "f"):
+        values.update({f"{stem}_{m}": coeffs[:, m] for m in range(12)})
+    slots = _slots(sched, 2, values)
+    rounds = {p.name: _rounds(p) for p in sched.programs}
+    for k in range(5):
+        for bit in bin(cuda_pairing.X_ABS)[3:]:
+            _run(rounds["sqr_mul" if bit == "1" else "sqr"], slots)
+        _run(rounds[f"glue{k}"], slots)
+    got = slots[[sched.slot_of[f"acc_{m}"] for m in range(12)]]
+    assert torch.equal(got.movedim(0, 1).reshape(want.shape), want)
+
+
+def test_comb_schedule_matches_plain_chain_sum():
+    """The schedule over the rows of three chains of 8, each row's flag the
+    lane bit, against cuda_msm.comb_chain_sum_plain: the same projective
+    digits.  One chain has clear flags, one only identity rows, and a
+    point repeats (the doubling case of the complete addition)."""
+    rng = np.random.default_rng(0x636F)
+    pts = [host.jac_mul_raw(host.FP_OPS, host.G1_GEN, int(k)) for k in rng.integers(1, 1 << 62, 5)]
+    aff = [host.jac_to_affine(host.FP_OPS, p) for p in pts]
+    rows = rng.integers(0, 5, (3, 8))
+    rows[0, 3] = rows[0, 2]
+    flags = rng.random((3, 8)) > 0.3
+    flags[1] = False
+    x = torch.as_tensor(np.stack([[FP.from_int(aff[r][0]) if f else np.zeros(FP.n_digits, np.int64)
+                                   for r, f in zip(rr, ff)] for rr, ff in zip(rows, flags)]))
+    y = torch.as_tensor(np.stack([[FP.from_int(aff[r][1]) if f else np.asarray(FP.one_mont)
+                                   for r, f in zip(rr, ff)] for rr, ff in zip(rows, flags)]))
+    flags = torch.as_tensor(flags)
+    want = cuda_msm.comb_chain_sum_plain(x, y, flags, 8)  # (3, 1, 24) each
+
+    sched = gs.comb_schedule()
+    slots = _slots(sched, 3, {"y": FP.tensor("one_mont", "cpu")})  # acc = (0 : 1 : 0)
+    rounds = _rounds(sched.programs[0])
+    for k in range(8):
+        slots[sched.slot_of["x2"]], slots[sched.slot_of["y2"]] = x[:, k], y[:, k]
+        _run(rounds, slots, flags[:, k])
+    for n, w in zip(gs.G1_STATE, want):
+        assert torch.equal(slots[sched.slot_of[n]], w[:, 0])

@@ -6,9 +6,10 @@ Loads the mainnet setup and commits 64 copies of the vendored
 `blob_to_kzg_commitment/valid_0` blob.  Every stage below is timed on the
 host clock between two syncs, summed over the loop it sits in:
   1. the comb (comb_h = 12): the table build (seconds, peak device
-     memory), then one commit by its columns: the row gather, kernel K8,
-     the halving sum of the chain totals, and the doubling and addition
-     into the accumulator; then blobs_to_kzg_commitments by stage (blob
+     memory), then one commit by its stages: the row gather of all 22
+     columns, kernel K8's one launch, the halving sum of every column's
+     chain totals, and the 22 doublings and additions that combine the
+     columns; then blobs_to_kzg_commitments by stage (blob
      decode, commit, compression and read-back) and compute_kzg_proofs'
      evaluation and quotient;
   2. the windowed Pippenger (comb_h = 0): one commit by its windows: the
@@ -81,20 +82,20 @@ def main() -> int:
 
     h, n = cfg.comb_h, cfg.n
     d = comb.comb_dims(h)
-    cols = comb.column_digits(elements, h, d)
-    base = torch.arange(n, device=dev) << h
-    acc = ops.identity(F1, (64,), dev)
-    ms = dict.fromkeys(("gather", "comb_chain_sum", "halving_sum", "double_add"), 0.0)
-    for t in range(d - 1, -1, -1):
-        idx = cols[t] + base
-        (x, y, fl), dt = timed(lambda: (table[0][idx], table[1][idx], cols[t] != 0))
-        ms["gather"] += dt
-        chains, dt = timed(lambda: cuda_msm.comb_chain_sum(x, y, fl))
-        ms["comb_chain_sum"] += dt
-        s, dt = timed(lambda: msm.halving_sum(F1, chains, axis=1))
-        ms["halving_sum"] += dt
-        acc, dt = timed(lambda: ops.padd(F1, ops.pdouble(F1, acc), s))
-        ms["double_add"] += dt
+    cols = comb.column_digits(elements, h, d)  # (d, 64, n)
+    idx = cols + (torch.arange(n, device=dev) << h)
+    ms = {}
+    (x, y, fl), ms["gather"] = timed(lambda: (table[0][idx], table[1][idx], cols != 0))
+    chains, ms["comb_chain_sum"] = timed(lambda: cuda_msm.comb_chain_sum(x, y, fl))
+    sums, ms["halving_sum"] = timed(lambda: msm.halving_sum(F1, chains, axis=2))
+
+    def combine():
+        acc = ops.identity(F1, (64,), dev)
+        for t in range(d - 1, -1, -1):
+            acc = ops.padd(F1, ops.pdouble(F1, acc), tuple(c[t] for c in sums))
+        return acc
+
+    acc, ms["double_add"] = timed(combine)
     assert all(torch.equal(a, b) for a, b in zip(acc, want)), "comb replay differs"
     out["comb_commit_ms_by_stage"] = ms
 
