@@ -9,10 +9,15 @@ Phases, one line each; any failure exits non-zero before the last line:
 3. kernels: each of the eight kernels at its main-path shape, held bit for
    bit against its plain PyTorch version on the same inputs on the card,
    with the median time of each (CUDA events, after a warm-up); K1 also
-   timed over Fp at the point formulas' widths (128 and 8,192 lanes), the
-   team kernels K3 also checked at 1, 3 and 4,096 lanes, K4 at 1 lane and
-   K5 at 3 lanes, and K8 also at 1 chain, a partial block and one comb
-   column, then timed at the commit's one launch over all 22 columns.
+   checked over Fr and Fp at ragged widths (1, 127, 129, 4,097 and 262,145
+   lanes), with a broadcast (1, D) x (n, D) pair and with operands that are
+   not 16-byte aligned, and timed over Fp at the point formulas' widths
+   (128 and 8,192 lanes: a call, the device's share, and the host time of
+   a call over 1,000 calls); the team kernels K3 also checked at 1, 3 and
+   4,096 lanes, K4 at 1 lane, K5 at 3 lanes, K6 at 3 and 64 lanes (scalars
+   0, 1, r - 1 and random ones, the point at infinity among the bases), and
+   K8 also at 1 chain, a partial block and one comb column, then timed at
+   the commit's one launch over all 22 columns.
 4. paths, each run with the launch counters zeroed just before and read
    just after, each required to launch its own kernels:
    - batch verify: Kzg.load_json of the mainnet setup, every vendored
@@ -104,6 +109,8 @@ def ptxas_summary(log_text: str) -> list[str]:
             name = next(k for k in re.findall(r"[a-z0-9_]+_kernel", mangled))
             name = re.sub(r"^.*\d+(?=[a-z])", "", name)  # the length prefix
             name += "".join(f"<{f}>" for f in ("FrField", "FpField") if f in mangled)
+            name += {"Lb1E": "<aligned16>", "Lb0E": "<unaligned>"}.get(
+                next(iter(re.findall(r"Lb[01]E", mangled)), ""), "")
         m = re.search(r"(\d+) bytes stack frame", line)
         if m and name:
             stack = m.group(1)
@@ -148,6 +155,19 @@ def device_ms_per_call(fn, runs: int, kernel: str) -> float | None:
     return sum(us) / runs / 1e3 if us else None
 
 
+def host_ms_per_call(fn, calls: int) -> float:
+    """Milliseconds of host time per call of fn() over `calls` calls, with
+    no synchronisation inside the loop (one before and one after)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / calls * 1e3
+
+
 def schedule_products(header: str, what: str = "kProgramProducts") -> list[int]:
     """The Fp products (or, with what = "kProgramProductRounds", the
     product rounds) of each program of a team kernel's schedule, from
@@ -180,7 +200,7 @@ def kernel_phases(dev, smi: str) -> list[dict]:
         d = rng.integers(0, 1 << 16, (lanes, spec.n_digits), dtype=np.int64)
         d[:, -1] = rng.integers(0, int(spec.mod_digits[-1]), lanes)
         d[0] = L.int_to_digits(spec.modulus - 1, spec.n_digits)
-        d[1] = 0
+        d[1:2] = 0
         return torch.as_tensor(d).to(dev)
 
     out = []
@@ -220,14 +240,35 @@ def kernel_phases(dev, smi: str) -> list[dict]:
                 lambda: cuda_mont.mont_mul(FR, a, b), lambda: cuda_mont.mont_mul_plain(FR, a, b),
                 20, 3, 3 * a.numel() * 8, a.shape[0] * MULS_FR)
     k1["device_ms"] = device_ms_per_call(lambda: cuda_mont.mont_mul(FR, a, b), 20, "mont_mul_kernel")
-    log(f"kernel mont_mul: device time {k1['device_ms']} ms per launch [{smi}]")
-    # K1 over Fp at the setup-load shape (4096 lanes): checked, logged
-    a, b = field_elems(FP, 4096), field_elems(FP, 4096).flip(0)
-    if max_abs_err(cuda_mont.mont_mul(FP, a, b), cuda_mont.mont_mul_plain(FP, a, b)):
-        raise AssertionError("mont_mul over Fp differs from its plain version")
-    log("kernel mont_mul (Fp, 4096 lanes): equal to plain")
+    log(f"kernel mont_mul: device time {k1['device_ms']} ms per launch, "
+        f"{k1['device_ms'] / k1['bound_ms']:.2f}x its bound [{smi}]")
+    # K1 at ragged widths over both fields, a broadcast pair, and operands
+    # 8 bytes past a 16-byte boundary (the kernel's 8-byte path)
+    for spec in (FR, FP):
+        D = spec.n_digits
+        for lanes in (1, 127, 129, 4097, 262145):
+            a, b = field_elems(spec, lanes), field_elems(spec, lanes).flip(0)
+            if max_abs_err(cuda_mont.mont_mul(spec, a, b), cuda_mont.mont_mul_plain(spec, a, b)):
+                raise AssertionError(f"mont_mul over {spec.name} at {lanes} lanes differs from plain")
+        a, b = field_elems(spec, 1), field_elems(spec, 4097)
+        if max_abs_err(cuda_mont.mont_mul(spec, a, b), cuda_mont.mont_mul_plain(spec, a, b)):
+            raise AssertionError(f"mont_mul over {spec.name}, (1, {D}) x (4097, {D}), differs")
+        # contiguous views 8 bytes past a 16-byte boundary: the wrapper
+        # hands them over as they are
+        buf = torch.empty(2 * 4097 * D + 1, dtype=torch.int64, device=dev)
+        a, b = (buf[1 + k * 4097 * D:1 + (k + 1) * 4097 * D].view(4097, D) for k in range(2))
+        a.copy_(field_elems(spec, 4097))
+        b.copy_(field_elems(spec, 4097))
+        if a.data_ptr() % 16 != 8 or b.data_ptr() % 16 != 8:
+            raise AssertionError("the unaligned operands are aligned")
+        if max_abs_err(cuda_mont.mont_mul(spec, a, b), cuda_mont.mont_mul_plain(spec, a, b)):
+            raise AssertionError(f"mont_mul over {spec.name}, unaligned operands, differs")
+        log(f"kernel mont_mul ({spec.name}): equal to plain at 1, 127, 129, 4097 and 262145 "
+            f"lanes, (1, {D}) x (4097, {D}) and unaligned operands")
     # K1 over Fp at the widths of the plain point formulas, where most of
-    # its launches are: 128 lanes (verify) and 8,192 (the comb's sums)
+    # its launches are: 128 lanes (verify) and 8,192 (the comb's sums); a
+    # call between CUDA events, the device's share of it, and the host
+    # time of a call over 1,000 calls with one synchronisation at the end
     k1["widths"] = []
     for lanes in (128, 8192):
         a, b = field_elems(FP, lanes), field_elems(FP, lanes).flip(0)
@@ -235,10 +276,13 @@ def kernel_phases(dev, smi: str) -> list[dict]:
             "mont_mul", lambda: cuda_mont.mont_mul(FP, a, b),
             lambda: cuda_mont.mont_mul_plain(FP, a, b), 50, 5, 3 * a.numel() * 8, lanes * MULS_FP)
         dev_ms = device_ms_per_call(lambda: cuda_mont.mont_mul(FP, a, b), 100, "mont_mul_kernel")
+        host_ms = host_ms_per_call(lambda: L.mont_mul(FP, a, b), 1000)
         k1["widths"].append({"field": "fp", "lanes": lanes, "ms": ms, "device_ms": dev_ms,
-                             "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms)})
+                             "host_ms": host_ms, "plain_ms": plain_ms,
+                             "bound_ms": max(bytes_ms, ops_ms)})
         log(f"kernel mont_mul (Fp, {lanes} lanes): equal to plain; {ms:.4f} ms a call, device "
-            f"time {dev_ms} ms (plain {plain_ms:.2f} ms, bound {max(bytes_ms, ops_ms):.4f} ms) [{smi}]")
+            f"time {dev_ms} ms, host time {host_ms:.4f} ms a call over 1000 calls (plain "
+            f"{plain_ms:.2f} ms, bound {max(bytes_ms, ops_ms):.6f} ms) [{smi}]")
 
     # K2: the G1 square root over the 2B = 128 decompression lanes, and p - 2
     a = field_elems(FP, 128)
@@ -322,14 +366,30 @@ def kernel_phases(dev, smi: str) -> list[dict]:
            lambda: cuda_pairing.hard_part(f1), lambda: cuda_pairing.hard_part_plain(f1),
            20, 1, 2 * 288 * 8, hard_muls * MULS_FP)
 
-    # K6 at the single lane of verify_kzg_proof: z (-G2), 256 steps of a
-    # doubling (8 Fp2 products) and an addition (12), 3 Fp products each
+    # K6, a warp per lane: bit for bit at 3 and 64 lanes, bases the point
+    # at infinity, -G2 and random points, scalars r - 1, 0, 1 and random
+    # ones; then timed at the single lane of verify_kzg_proof: z (-G2), 256
+    # steps of the schedule's Fp products (20 Fp2 products, 3 Fp products
+    # each)
     neg_g2 = ops.pneg(ops.FP2_FIELD, tuple(torch.as_tensor(c[None]).to(dev) for c in g2mod.GENERATOR))
+    gx, gy, gz = host.G2_GEN
+    q2 = [host.jac_infinity(host.FP2_OPS), (gx, host.fp2_neg(gy), gz)] + [
+        host.jac_mul_raw(host.FP2_OPS, host.G2_GEN, int(k)) for k in rng.integers(1, 1 << 62, 6)]
+    for lanes in (3, 64):
+        Q = tuple(torch.as_tensor(np.resize(c, (lanes, 2, 24))).to(dev) for c in g2mod.from_ints(q2))
+        # 7 scalars against 8 bases: over 64 lanes each base meets each scalar
+        ks = [host.R - 1, 0, 1] + [int.from_bytes(rng.bytes(32), "big") % host.R for _ in range(4)]
+        sc = torch.as_tensor(np.resize(np.stack([L.int_to_digits(k, 16) for k in ks]), (lanes, 16)))
+        sc = sc.to(dev)
+        if max_abs_err(cuda_pairing.g2_scalar_mul(Q, sc), cuda_pairing.g2_scalar_mul_plain(Q, sc)):
+            raise AssertionError(f"g2_ladder at {lanes} lanes differs from its plain version")
+        log(f"kernel g2_ladder ({lanes} lanes): equal to plain")
     z = torch.as_tensor(L.int_to_digits(int.from_bytes(rng.bytes(32), "big") % host.R, 16)[None]).to(dev)
+    (g2_products,) = schedule_products("schedule_g2.cuh")
     record("g2_ladder", "kateth_tpu_torch/csrc/g2_ladder.cu", "kateth_tpu/pallas_pairing.py:344",
            lambda: cuda_pairing.g2_scalar_mul(neg_g2, z),
            lambda: cuda_pairing.g2_scalar_mul_plain(neg_g2, z),
-           5, 1, (6 * 48 + 16) * 8, 256 * 20 * 3 * MULS_FP)
+           10, 1, (6 * 48 + 16) * 8, 256 * g2_products * MULS_FP)
 
     # K7 at one window of the 64-blob windowed commit: 64 x 4096 sorted
     # points in 32,768 chains of 8 additions (12 products each)

@@ -2,14 +2,17 @@
 //
 // Operands arrive in the PyTorch layout: int64 tensors of 16-bit digits,
 // lane-major ((lanes, D), digits contiguous).  In K1 and K2 each thread owns
-// one lane; in K3 a team of 8 threads does (team.cuh).  Digits are packed
-// into 32-bit limbs on load and unpacked on store.
+// one lane (K1 through a tile staged in shared memory); in K3 a team of 8
+// threads does (team.cuh).  Digits are packed into 32-bit limbs on load and
+// unpacked on store.
 //
 // C interface, bound with ctypes by kateth_tpu_torch/cuda_lib.py: every
 // launcher takes the device pointers and the CUDA stream, launches on that
 // stream and returns cudaGetLastError().
 
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 #include "field.cuh"
 #include "schedule_g1.cuh"
@@ -31,23 +34,78 @@ inline unsigned int blocks_for(int64_t lanes) {
 // 3 x 16 x 8 B per lane (two int64 digit inputs, one output) and does
 // 2 x 8^2 + 8 = 136 32x32->64-bit multiplies per lane: 0.35 per byte,
 // where the card's integer multiply rate would bind only above ~2.5.
-// Design: one thread per lane, no shared memory, the whole CIOS product in
-// registers; reads and writes stay in the int64 digit layout so no
-// repacking pass runs around it.
+// Design: a block of 128 threads owns a tile of 128 lanes, which is one
+// contiguous byte range of each operand (128 x D x 8 bytes).  The block
+// stages the tiles of a and b into shared memory with coalesced 16-byte
+// loads, neighbouring threads on neighbouring 16 bytes, each thread
+// packing its digit pair into a 32-bit limb; a lane's row of limbs is
+// padded to N + 1 words, an odd stride, so that the 32 threads of a warp
+// read their own rows' limb j from 32 different banks.  Each thread then
+// runs its lane's CIOS product in registers, writes the row back over a's
+// tile, and the block stores the tile with coalesced 16-byte stores.  A
+// ragged last tile stages only its lanes; a base pointer that is not
+// 16-byte aligned takes the same kernel with two 8-byte accesses a chunk.
 // ---------------------------------------------------------------------------
 
-template <class F>
+template <class F, bool kAligned16>
 __global__ void __launch_bounds__(kThreads)
     mont_mul_kernel(const int64_t* __restrict__ a, const int64_t* __restrict__ b,
                     int64_t* __restrict__ out, int64_t lanes) {
-  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= lanes) return;
-  constexpr int D = 2 * F::N;
-  uint32_t x[F::N], y[F::N];
-  load_digits<F>(x, a + i * D);
-  load_digits<F>(y, b + i * D);
-  fmul<F>(x, x, y);
-  store_digits<F>(out + i * D, x);
+  constexpr int N = F::N;
+  constexpr int kRow = N + 1;  // words a row: odd, so no bank conflicts
+  __shared__ uint32_t ta[kThreads * kRow], tb[kThreads * kRow];
+  const int64_t first = (int64_t)blockIdx.x * kThreads;
+  const int64_t left = lanes - first;
+  const int n = left < kThreads ? (int)left : kThreads;  // lanes of this tile
+  const int64_t base = first * 2 * N;                    // its first digit
+  // chunk c of the tile: digits 2c and 2c + 1, limb c % N of lane c / N,
+  // which sits at word c + c / N of the padded tile
+  for (int c = threadIdx.x; c < n * N; c += kThreads) {
+    const int64_t d = base + 2 * c;
+    int64_t a0, a1, b0, b1;
+    if (kAligned16) {
+      const longlong2 va = __ldg(reinterpret_cast<const longlong2*>(a + d));
+      const longlong2 vb = __ldg(reinterpret_cast<const longlong2*>(b + d));
+      a0 = va.x, a1 = va.y, b0 = vb.x, b1 = vb.y;
+    } else {
+      a0 = __ldg(a + d), a1 = __ldg(a + d + 1), b0 = __ldg(b + d), b1 = __ldg(b + d + 1);
+    }
+    const int w = c + c / N;
+    ta[w] = (uint32_t)a0 | ((uint32_t)a1 << 16);
+    tb[w] = (uint32_t)b0 | ((uint32_t)b1 << 16);
+  }
+  __syncthreads();
+  if (threadIdx.x < n) {
+    uint32_t* row = ta + threadIdx.x * kRow;
+    const uint32_t* rb = tb + threadIdx.x * kRow;
+    uint32_t x[N], y[N];
+#pragma unroll
+    for (int j = 0; j < N; ++j) x[j] = row[j], y[j] = rb[j];
+    fmul<F>(x, x, y);
+#pragma unroll
+    for (int j = 0; j < N; ++j) row[j] = x[j];
+  }
+  __syncthreads();
+  for (int c = threadIdx.x; c < n * N; c += kThreads) {
+    const uint32_t v = ta[c + c / N];
+    const int64_t lo = v & 0xffffu, hi = v >> 16;
+    int64_t* o = out + base + 2 * c;
+    if (kAligned16) {
+      *reinterpret_cast<longlong2*>(o) = make_longlong2(lo, hi);
+    } else {
+      o[0] = lo, o[1] = hi;
+    }
+  }
+}
+
+template <class F>
+void launch_mont_mul(const int64_t* a, const int64_t* b, int64_t* out, int64_t lanes,
+                     cudaStream_t s) {
+  const bool aligned = (((uintptr_t)a | (uintptr_t)b | (uintptr_t)out) & 15u) == 0;
+  if (aligned)
+    mont_mul_kernel<F, true><<<blocks_for(lanes), kThreads, 0, s>>>(a, b, out, lanes);
+  else
+    mont_mul_kernel<F, false><<<blocks_for(lanes), kThreads, 0, s>>>(a, b, out, lanes);
 }
 
 // ---------------------------------------------------------------------------
@@ -154,9 +212,9 @@ int kateth_mont_mul(int field, const int64_t* a, const int64_t* b, int64_t* out,
   if (lanes <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   if (field == 0)
-    mont_mul_kernel<FrField><<<blocks_for(lanes), kThreads, 0, s>>>(a, b, out, lanes);
+    launch_mont_mul<FrField>(a, b, out, lanes, s);
   else
-    mont_mul_kernel<FpField><<<blocks_for(lanes), kThreads, 0, s>>>(a, b, out, lanes);
+    launch_mont_mul<FpField>(a, b, out, lanes, s);
   return (int)cudaGetLastError();
 }
 

@@ -93,8 +93,8 @@ __device__ __forceinline__ void team_linear(Slot* slot, uint2 ins, bool bit) {
   slot_store(slot[ins.x >> 16], x);
 }
 
-// the team's barrier: a block of threads, or a team of 8 lanes of a warp
-// (mask: the team's lanes)
+// the team's barrier: a block of threads, or a team of lanes of one warp
+// (mask: the team's lanes; ~0u for a whole warp)
 struct BlockSync {
   __device__ __forceinline__ void operator()() const { __syncthreads(); }
 };

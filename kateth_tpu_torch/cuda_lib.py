@@ -147,26 +147,42 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
-def check_cuda(*tensors: torch.Tensor) -> None:
-    """Every operand of a launch: on one CUDA device, int64, contiguous."""
-    dev = tensors[0].device
+def check_cuda(*tensors: torch.Tensor) -> int:
+    """Every operand of a launch: on one CUDA device, int64, contiguous.
+    Returns that device's index."""
+    index = tensors[0].get_device()
     for t in tensors:
-        if t.device != dev or t.device.type != "cuda":
+        if not t.is_cuda or t.get_device() != index:
             raise ValueError("kernel operands must share one CUDA device")
         if t.dtype != torch.int64:
             raise TypeError(f"kernel operands are int64 digit planes, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError("kernel operands must be contiguous")
+    return index
 
 
-def launch(kernel: str, device: torch.device, *args) -> None:
-    """Call `kernel`'s C launcher on `device`'s current stream, raise on a
-    launch error, and count the launch."""
+#: the caller's current stream on a device index, as an int: the raw
+#: handle where this PyTorch has the call, which builds no Stream object
+_current_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None) or (
+    lambda index: torch.cuda.current_stream(index).cuda_stream)
+
+#: kernel -> its C launcher, bound once
+_LAUNCHERS: dict[str, ctypes._CFuncPtr] = {}
+
+
+def _launcher(kernel: str) -> ctypes._CFuncPtr:
     lib_name, fn, _ = KERNELS[kernel]
-    lib = library(lib_name)
-    stream = torch.cuda.current_stream(device).cuda_stream
-    err = getattr(lib, fn)(*args, stream)
+    _LAUNCHERS[kernel] = getattr(library(lib_name), fn)
+    return _LAUNCHERS[kernel]
+
+
+def launch(kernel: str, device: int, *args) -> None:
+    """Call `kernel`'s C launcher on the current stream of CUDA device
+    `device` (the index check_cuda returns), raise on a launch error, and
+    count the launch."""
+    fn = _LAUNCHERS.get(kernel) or _launcher(kernel)
+    err = fn(*args, _current_stream(device))
     if err != 0:
-        msg = lib.kateth_error_string(err).decode()
+        msg = library(KERNELS[kernel][0]).kateth_error_string(err).decode()
         raise RuntimeError(f"CUDA kernel {kernel} failed to launch: {msg} ({err})")
     LAUNCHES[kernel] += 1

@@ -127,11 +127,11 @@ def miller_loop_affine(xp, yp, xq, yq):
     xq = xq.expand(*batch, 2, D).contiguous()
     yq = yq.expand(*batch, 2, D).contiguous()
     out = torch.empty((*batch, 2, 3, 2, D), dtype=torch.int64, device=xp.device)
-    cuda_lib.check_cuda(xp, yp, xq, yq, out)
+    dev = cuda_lib.check_cuda(xp, yp, xq, yq, out)
     lanes = math.prod(batch)
     if lanes:
         cuda_lib.launch(
-            "miller", xp.device, xp.data_ptr(), yp.data_ptr(), xq.data_ptr(), yq.data_ptr(),
+            "miller", dev, xp.data_ptr(), yp.data_ptr(), xq.data_ptr(), yq.data_ptr(),
             out.data_ptr(), lanes,
         )
     return out
@@ -168,10 +168,10 @@ def hard_part(f):
         raise ValueError("hard_part takes Fp12 digit planes (..., 2, 3, 2, 24)")
     f = f.contiguous()
     out = torch.empty_like(f)
-    cuda_lib.check_cuda(f, out)
+    dev = cuda_lib.check_cuda(f, out)
     lanes = math.prod(f.shape[:-4])
     if lanes:
-        cuda_lib.launch("hard_part", f.device, f.data_ptr(), out.data_ptr(), lanes)
+        cuda_lib.launch("hard_part", dev, f.data_ptr(), out.data_ptr(), lanes)
     return out
 
 
@@ -195,11 +195,11 @@ def g2_scalar_mul(point, scalar_digits: torch.Tensor):
     pts = [c.expand(*batch, 2, D).contiguous() for c in point]
     sc = scalar_digits.expand(*batch, FR.n_digits).contiguous()
     outs = [torch.empty_like(pts[0]) for _ in range(3)]
-    cuda_lib.check_cuda(*pts, sc, *outs)
+    dev = cuda_lib.check_cuda(*pts, sc, *outs)
     lanes = math.prod(batch)
     if lanes:
         cuda_lib.launch(
-            "g2_ladder", sc.device, *(t.data_ptr() for t in pts), sc.data_ptr(),
+            "g2_ladder", dev, *(t.data_ptr() for t in pts), sc.data_ptr(),
             *(t.data_ptr() for t in outs), lanes,
         )
     return tuple(outs)

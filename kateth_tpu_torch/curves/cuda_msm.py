@@ -57,10 +57,10 @@ def chain_prefix(p, g: int):
     pts = [c.contiguous() for c in p]
     chains = _chains(pts[0], g).shape[:-2].numel()
     outs = [torch.empty_like(c) for c in pts]
-    cuda_lib.check_cuda(*pts, *outs)
+    dev = cuda_lib.check_cuda(*pts, *outs)
     if chains:
         cuda_lib.launch(
-            "prefix_scan", pts[0].device, *(t.data_ptr() for t in pts),
+            "prefix_scan", dev, *(t.data_ptr() for t in pts),
             *(t.data_ptr() for t in outs), chains, g,
         )
     return tuple(outs)
@@ -113,11 +113,11 @@ def comb_chain_sum(x: torch.Tensor, y: torch.Tensor, flags: torch.Tensor, g: int
     fl = flags.to(torch.int64).contiguous()
     shape = _chains(x, g).shape[:-2]
     outs = [torch.empty((*shape, FP.n_digits), dtype=torch.int64, device=x.device) for _ in range(3)]
-    cuda_lib.check_cuda(x, y, fl, *outs)
+    dev = cuda_lib.check_cuda(x, y, fl, *outs)
     chains = shape.numel()
     if chains:
         cuda_lib.launch(
-            "comb_chain_sum", x.device, x.data_ptr(), y.data_ptr(), fl.data_ptr(),
+            "comb_chain_sum", dev, x.data_ptr(), y.data_ptr(), fl.data_ptr(),
             *(t.data_ptr() for t in outs), chains, g,
         )
     return tuple(outs)

@@ -4,7 +4,8 @@ On a CUDA tensor a wrapper launches its kernel (csrc/kernels.cu) or raises;
 on a CPU tensor it runs the plain PyTorch version, which computes the same
 canonical digits.  Operands keep the digit-plane layout (..., D); the
 kernels read and write it directly, so a wrapper only broadcasts, makes
-the operands contiguous and allocates the output.
+the operands contiguous and allocates the output.  cuda_lib.launch binds
+each C launcher once and passes the caller's current stream.
 
   K1 mont_mul    -> kateth_tpu/fields/pallas_mont.py::_mont_mul_flat
   K2 pow_chain   -> pallas_mont.py::_pow_chain_flat
@@ -44,20 +45,24 @@ def mont_mul_plain(spec: L.FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch
 
 
 def mont_mul(spec: L.FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Batched Montgomery product a b R^-1 mod N."""
-    if a.device.type == "cpu" and b.device.type == "cpu":
+    """Batched Montgomery product a b R^-1 mod N.  Most calls come from the
+    plain point formulas, a few hundred lanes each, so the kernel path
+    does the least host work it can: equal shapes skip broadcasting, and
+    contiguous operands are taken as they are."""
+    if a.is_cpu and b.is_cpu:
         return mont_mul_plain(spec, a, b)
-    shape = torch.broadcast_shapes(a.shape, b.shape)
+    field = _field_id(spec)
+    shape = a.shape
+    if b.shape != shape:
+        shape = torch.broadcast_shapes(shape, b.shape)
+        a, b = a.expand(shape), b.expand(shape)
     _check_digits(spec, shape)
-    a = a.expand(shape).contiguous()
-    b = b.expand(shape).contiguous()
-    out = torch.empty(shape, dtype=torch.int64, device=a.device)
-    cuda_lib.check_cuda(a, b, out)
-    lanes = math.prod(shape[:-1])
+    a, b = a.contiguous(), b.contiguous()
+    out = torch.empty_like(a)
+    dev = cuda_lib.check_cuda(a, b, out)
+    lanes = a.numel() // spec.n_digits
     if lanes:
-        cuda_lib.launch(
-            "mont_mul", a.device, _field_id(spec), a.data_ptr(), b.data_ptr(), out.data_ptr(), lanes
-        )
+        cuda_lib.launch("mont_mul", dev, field, a.data_ptr(), b.data_ptr(), out.data_ptr(), lanes)
         cuda_lib.count_mont_mul_lanes(lanes)
     return out
 
@@ -83,12 +88,12 @@ def pow_const(spec: L.FieldSpec, a: torch.Tensor, e: int) -> torch.Tensor:
     _check_digits(spec, a.shape)
     a = a.contiguous()
     out = torch.empty_like(a)
-    cuda_lib.check_cuda(a, out)
+    dev = cuda_lib.check_cuda(a, out)
     words = (ctypes.c_uint32 * 16)(*[(e >> (32 * k)) & 0xFFFFFFFF for k in range(16)])
     lanes = math.prod(a.shape[:-1])
     if lanes:
         cuda_lib.launch(
-            "pow_chain", a.device, _field_id(spec), a.data_ptr(), out.data_ptr(), lanes,
+            "pow_chain", dev, _field_id(spec), a.data_ptr(), out.data_ptr(), lanes,
             ctypes.cast(words, ctypes.c_void_p), e.bit_length(),
         )
     return out
@@ -113,11 +118,11 @@ def g1_scalar_mul(point, scalar_digits: torch.Tensor):
     pts = [c.expand(*batch, FP.n_digits).contiguous() for c in point]
     sc = scalar_digits.expand(*batch, FR.n_digits).contiguous()
     outs = [torch.empty_like(pts[0]) for _ in range(3)]
-    cuda_lib.check_cuda(*pts, sc, *outs)
+    dev = cuda_lib.check_cuda(*pts, sc, *outs)
     lanes = math.prod(batch)
     if lanes:
         cuda_lib.launch(
-            "g1_ladder", sc.device, *(t.data_ptr() for t in pts), sc.data_ptr(),
+            "g1_ladder", dev, *(t.data_ptr() for t in pts), sc.data_ptr(),
             *(t.data_ptr() for t in outs), lanes,
         )
     return tuple(outs)

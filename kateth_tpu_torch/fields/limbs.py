@@ -19,6 +19,7 @@ of `cuda_mont`, which launch the CUDA kernels on a CUDA tensor.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -236,11 +237,18 @@ def mont_reduce(spec: FieldSpec, t: torch.Tensor) -> torch.Tensor:
     return cond_sub_mod(spec, res)
 
 
-def mont_mul(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Montgomery product a b R^-1 mod N (kernel K1 on a CUDA tensor)."""
+@functools.cache
+def _wrappers():
+    """The kernel wrappers (cuda_mont), bound at the first call and kept:
+    cuda_mont imports this module, so it cannot be imported at the top."""
     from . import cuda_mont
 
-    return cuda_mont.mont_mul(spec, a, b)
+    return cuda_mont
+
+
+def mont_mul(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Montgomery product a b R^-1 mod N (kernel K1 on a CUDA tensor)."""
+    return _wrappers().mont_mul(spec, a, b)
 
 
 def mont_sqr(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
@@ -287,9 +295,7 @@ def pow_const(spec: FieldSpec, a: torch.Tensor, e: int) -> torch.Tensor:
         raise ValueError("negative exponent")
     if e == 0:
         return spec.tensor("one_mont", a.device).expand_as(a).clone()
-    from . import cuda_mont
-
-    return cuda_mont.pow_const(spec, a, e)
+    return _wrappers().pow_const(spec, a, e)
 
 
 def inv(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:

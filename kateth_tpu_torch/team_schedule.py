@@ -1,5 +1,6 @@
 """Round schedules of the team kernels K3 (G1 ladder), K4 (Miller loop),
-K5 (hard part of the final exponentiation) and K8 (comb chain sum).
+K5 (hard part of the final exponentiation), K6 (G2 ladder) and K8 (comb
+chain sum).
 
 A team of threads works on one lane and runs each step's independent Fp
 operations in parallel, round by round.  This module writes each step as
@@ -12,6 +13,7 @@ rounds of instructions into a header in csrc/ that the kernels include:
                           squaring, a squaring and a product (a set bit of
                           |x|), and the five steps between the |x|-powers
   schedule_comb.cuh       one row of msm.cu's comb_chain_sum_kernel
+  schedule_g2.cuh         one ladder bit of g2_ladder.cu's g2_ladder_kernel
 
 The headers are committed; the build only compiles them.  After editing
 this module or the formulas it traces, rewrite them from the repository
@@ -44,7 +46,8 @@ hard part's values lie.
 
 tests/test_torch_team_schedule.py runs the schedules with the plain Fp
 operations and holds them bit for bit against the plain ladder, the plain
-Miller loop, the plain hard part and the plain chain sums.
+Miller loop, the plain hard part, the plain chain sums and the plain G2
+ladder.
 """
 
 from __future__ import annotations
@@ -338,6 +341,22 @@ def comb_step() -> tuple[Graph, dict[str, int]]:
 
 def _fp2_names(stem: str) -> list[str]:
     return [f"{stem}_{i}" for i in range(2)]
+
+
+#: the G2 ladder's state, acc over projective Fp2, and its base
+G2_STATE = [n for c in ("x", "y", "z") for n in _fp2_names(c)]
+G2_INPUTS = [*G2_STATE, *(n for c in ("bx", "by", "bz") for n in _fp2_names(c))]
+
+
+def g2_step() -> tuple[Graph, dict[str, int]]:
+    """g1_step over Fp2: acc = 2 acc, then acc = bit ? acc + base : acc,
+    a SEL on each of the six Fp components."""
+    g = Graph(G2_INPUTS)
+    two = lambda stem: tuple(g.inp(n) for n in _fp2_names(stem))  # noqa: E731
+    acc = (two("x"), two("y"), two("z"))
+    dbl = _pdouble(g, 2, acc)
+    s = _padd(g, 2, dbl, (two("bx"), two("by"), two("bz")))
+    return g, {n: g.sel(s[i // 2][i % 2], dbl[i // 2][i % 2]) for i, n in enumerate(G2_STATE)}
 
 
 def _f12_names(stem: str) -> list[str]:
@@ -656,6 +675,12 @@ def comb_schedule() -> Schedule:
     return _schedule_all("comb", {"comb_step": comb_step()}, 8)
 
 
+def g2_schedule() -> Schedule:
+    """A warp per lane: the widest product round, the addition's six Fp2
+    products (18 Fp products after Karatsuba), runs in one pass."""
+    return _schedule_all("g2_ladder", {"g2_step": g2_step()}, 32)
+
+
 def miller_schedule() -> Schedule:
     return _schedule_all("miller", {f"miller_bit{b}": miller_step(b) for b in (0, 1)}, 64)
 
@@ -795,6 +820,7 @@ HEADERS = {
     "schedule_miller.cuh": miller_schedule,
     "schedule_hard_part.cuh": hard_part_schedule,
     "schedule_comb.cuh": comb_schedule,
+    "schedule_g2.cuh": g2_schedule,
 }
 
 

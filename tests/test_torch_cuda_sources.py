@@ -1,9 +1,10 @@
 """The constants written into the CUDA sources (kateth_tpu_torch/csrc)
 equal the ones the Python side computes: moduli and Montgomery constants
 as 32-bit limbs, the Frobenius gammas, |x| of the Miller loop and the hard
-part, the curve constant 3b of the G1 and G2 point formulas and of the
-team kernels' schedules; every C launcher's parameters match the ctypes
-types cuda_lib binds it with, and the build's hash covers the sources.
+part, the curve constant 3b of the G1 point formulas and of the team
+kernels' schedules (the G2 ladder's among them); every C launcher's
+parameters match the ctypes types cuda_lib binds it with, and the build's
+hash covers the sources.
 The kernels themselves build and run only on a GPU (chip_smoke.py); this
 holds their tables and interfaces here."""
 
@@ -78,14 +79,32 @@ def test_x_abs(name):
 
 
 def test_curve_constant_3b():
-    """b = 4: G1 formulas multiply by 3b = 12 (mul12 = 8a + 4a), G2 ones by
-    3b' = 12 xi (and 36 xi = 3 (3b') in the doubling), as curves/ops.py."""
+    """b = 4: G1 formulas multiply by 3b = 12 (mul12 = 8a + 4a), as
+    curves/ops.py.  G2 ones by 3b' = 12 xi, and 36 xi = 3 (3b') in the
+    doubling: the G2 ladder's traced schedule (schedule_g2.cuh) multiplies
+    by exactly 12, 36 and 8 (8 Y^2); each 12 and 36 takes both components
+    of xi v = (v0 - v1) + (v0 + v1) u for one Fp2 value v (pdouble's
+    12 xi Z^2 and 36 xi Z^2, padd's 12 xi Z1 Z2 and 12 xi of its Y3 term:
+    three values by 12, one by 36), and the 8 no xi."""
+    from kateth_tpu_torch import team_schedule as gs
+
     g1 = _read("g1.cuh")
     assert re.search(r"fadd<FpField>\(a8, a4, a4\);\s*fadd<FpField>\(r, a8, a4\);", g1)
-    g2 = _read("g2.cuh")
-    assert "f2_mul_small(cx, 12)" in g2 and "f2_mul_small(cx, 36)" in g2
-    assert "f2_mul_small(f2_mul_by_xi(m2), 12)" in g2
-    assert "f2_mul_small(f2_mul_by_xi(ty), 12)" in g2
+    (prog,) = gs.g2_schedule().programs
+    ks = {k for _, ins in prog.rounds for op, _, _, k in ins if op == gs.SMALL}
+    assert ks == {12, 36, 8}
+    g, _ = gs.g2_step()
+    operands = {}  # k -> the (op, v0, v1) nodes it multiplies
+    for op, a, k in g.nodes:
+        if op == gs.SMALL:
+            operands.setdefault(k, []).append(g.nodes[a])
+    for k, n_values in ((12, 3), (36, 1)):
+        xi = {(a, b) for op, a, b in operands[k] if op == gs.SUB}
+        assert len(xi) == n_values, k
+        assert sorted(operands[k]) == sorted(
+            x for a, b in xi for x in ((gs.SUB, a, b), (gs.ADD, min(a, b), max(a, b))))
+    (op, a, b), other = operands[8]  # 8 Y^2: not a xi pair
+    assert other != (gs.ADD, min(a, b), max(a, b))
 
 
 def test_schedule_constants():

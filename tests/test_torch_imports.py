@@ -5,6 +5,8 @@ unless the caller names the device."""
 
 import ast
 import os
+import subprocess
+import sys
 
 import pytest
 import torch
@@ -17,7 +19,7 @@ FORBIDDEN = ("jax", "jaxlib", "kateth_tpu")
 def _sources():
     out = [os.path.join(REPO, "chip_smoke.py")]
     out += [os.path.join(REPO, "tools", f"profile_torch_{n}.py") for n in ("verify", "commit")]
-    out.append(os.path.join(REPO, "tools", "profile_team_kernels.py"))
+    out += [os.path.join(REPO, "tools", n) for n in ("profile_team_kernels.py", "profile_torch_k1.py")]
     for root, _, files in os.walk(PKG):
         out += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -53,6 +55,20 @@ def test_no_jax_or_reference_imports(path):
         top = name.split(".")[0]
         assert top not in FORBIDDEN, f"{path} imports {name}"
         assert name != "<beyond the package root>", f"{path} imports past the package root"
+
+
+@pytest.mark.parametrize("module", ["specs", "limbs", "cuda_mont"])
+def test_fields_import_in_any_order(module):
+    """limbs and the kernel wrappers of cuda_mont import each other (limbs
+    binds cuda_mont at its first product), so each of the three, imported
+    first in a fresh interpreter, loads and runs a product."""
+    code = (f"import kateth_tpu_torch.fields.{module}\n"
+            "import torch\n"
+            "from kateth_tpu_torch.fields import limbs as L\n"
+            "from kateth_tpu_torch.fields.specs import FR\n"
+            "one = FR.tensor('one_mont', 'cpu')\n"
+            "assert torch.equal(L.mont_mul(FR, one, one), one)\n")
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True)
 
 
 def test_import_walk_sees_relative_imports():

@@ -163,9 +163,12 @@ def _meta(*shape):
         (lambda: cuda_pairing.miller_loop_affine(
             _meta(2, 24), _meta(2, 24), _meta(2, 2, 24), _meta(2, 2, 24)), "CUDA"),
         (lambda: cuda_pairing.hard_part(_meta(1, 2, 3, 2, 24)), "CUDA"),
+        (lambda: cuda_pairing.g2_scalar_mul((_meta(2, 2, 24),) * 3, _meta(2, 16)), "CUDA"),
+        (lambda: cuda_mont.mont_mul(FP, _meta(1, 24), _meta(3, 24)), "CUDA"),
         (lambda: cuda_mont.mont_mul(FR, _meta(2, 24), _meta(2, 24)), "digit planes"),
     ],
-    ids=["mont_mul", "pow_chain", "g1_ladder", "miller", "hard_part", "wrong_width"],
+    ids=["mont_mul", "pow_chain", "g1_ladder", "miller", "hard_part", "g2_ladder",
+         "mont_mul_broadcast", "wrong_width"],
 )
 def test_wrappers_take_plain_path_only_on_cpu(call, match):
     """A tensor that is not on the CPU goes to the kernel path, which

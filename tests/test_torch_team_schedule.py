@@ -1,13 +1,13 @@
 """The round schedules of the team kernels K3 (G1 ladder), K4 (Miller
-loop), K5 (hard part) and K8 (comb chain sum), kateth_tpu_torch/csrc/
-schedule_{g1,miller,hard_part,comb}.cuh, on the CPU.
+loop), K5 (hard part), K6 (G2 ladder) and K8 (comb chain sum),
+kateth_tpu_torch/csrc/schedule_{g1,miller,hard_part,g2,comb}.cuh, on the CPU.
 
 The kernels are small interpreters over these tables, so a wrong slot or
 a wrong formula shows here: the committed headers are what the generator
 emits now, and the tables, run round by round with the plain Fp operations
 of kateth_tpu_torch.fields.limbs, give the plain ladder's, the plain
-Miller loop's, the plain hard part's and the plain chain sums' digits bit
-for bit.  No JAX."""
+Miller loop's, the plain hard part's, the plain chain sums' and the plain
+G2 ladder's digits bit for bit.  No JAX."""
 
 import os
 
@@ -81,8 +81,9 @@ def test_committed_header_is_generated(fname):
 
 
 @pytest.mark.parametrize(
-    "make", [gs.g1_schedule, gs.miller_schedule, gs.hard_part_schedule, gs.comb_schedule],
-    ids=["g1", "miller", "hard_part", "comb"])
+    "make",
+    [gs.g1_schedule, gs.miller_schedule, gs.hard_part_schedule, gs.comb_schedule, gs.g2_schedule],
+    ids=["g1", "miller", "hard_part", "comb", "g2"])
 def test_product_rounds_fit_the_team(make):
     """Every product round fits the team, so a round is one product deep
     (building the schedule has already run the generator's hazard
@@ -111,6 +112,37 @@ def test_g1_schedule_matches_plain_ladder():
         _run(rounds, slots, bit)
     for n, w in zip(gs.G1_STATE, want):
         assert torch.equal(slots[sched.slot_of[n]], w)
+
+
+def test_g2_schedule_matches_plain_ladder():
+    """64 ladder steps of the G2 schedule against the plain ladder
+    ops.scalar_mul(FP2_FIELD, ..., n_bits=64) (which g2_scalar_mul_plain
+    runs over 256 bits: every step is the same code): the same projective
+    digits.  Bases: a random point, the generator and the point at
+    infinity; 64-bit scalars 0, 1, 2^64 - 1 and a random one, on every
+    base (12 lanes), so the identity is doubled while the leading bits are
+    zero and the infinity is added to itself."""
+    rng = np.random.default_rng(0x6732)
+    pts = [host.jac_mul_raw(host.FP2_OPS, host.G2_GEN, int(rng.integers(1, 1 << 62))),
+           host.G2_GEN, host.jac_infinity(host.FP2_OPS)]
+    base = tuple(torch.as_tensor(np.repeat(c, 4, axis=0)) for c in g2mod.from_ints(pts))
+    scalars = [0, 1, (1 << 64) - 1, int(rng.integers(0, 1 << 63)) * 2 + 1]
+    sc = torch.as_tensor(np.stack([L.int_to_digits(s, FR.n_digits) for s in scalars * 3]))
+    want = ops.scalar_mul(ops.FP2_FIELD, base, sc, n_bits=64)
+    assert ops.is_identity(ops.FP2_FIELD, base)[8:].all()
+
+    sched = gs.g2_schedule()
+    (prog,) = sched.programs
+    # acc = (0 : 1 : 0), the base
+    values = {"y_0": FP.tensor("one_mont", "cpu")}
+    for stem, c in zip(("bx", "by", "bz"), base):
+        values[f"{stem}_0"], values[f"{stem}_1"] = c[:, 0], c[:, 1]
+    slots = _slots(sched, 12, values)
+    rounds = _rounds(prog)
+    for bit in ops.scalar_bits_msb(sc, 64):
+        _run(rounds, slots, bit)
+    for i, n in enumerate(gs.G2_STATE):
+        assert torch.equal(slots[sched.slot_of[n]], want[i // 2][:, i % 2]), n
 
 
 def test_miller_schedule_matches_plain_miller_loop():
