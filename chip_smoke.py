@@ -13,11 +13,16 @@ Phases, one line each; any failure exits non-zero before the last line:
    lanes), with a broadcast (1, D) x (n, D) pair and with operands that are
    not 16-byte aligned, and timed over Fp at the point formulas' widths
    (128 and 8,192 lanes: a call, the device's share, and the host time of
-   a call over 1,000 calls); the team kernels K3 also checked at 1, 3 and
-   4,096 lanes, K4 at 1 lane, K5 at 3 lanes, K6 at 3 and 64 lanes (scalars
-   0, 1, r - 1 and random ones, the point at infinity among the bases), and
-   K8 also at 1 chain, a partial block and one comb column, then timed at
-   the commit's one launch over all 22 columns.
+   a call over 1,000 calls); K2 checked at 1, 2, 127, 128, 129 and 4,097
+   lanes with (p+1)/4, p - 2 and r - 2 and at 129 lanes with e = 1, 2, 3,
+   2^100, 2^511 + 1 and a random 500-bit e over both fields, then timed at
+   128 lanes ((p+1)/4) and 1 lane (p - 2); the team kernels K3 also checked
+   at 1, 3 and 4,096 lanes, K4 at 1 lane, K5 at 3 lanes, K6 at 3 and 64
+   lanes (scalars 0, 1, r - 1 and random ones, the point at infinity among
+   the bases), K7 at 1 chain, a partial block and 64 x 4,096 points with
+   identity rows, repeated points and P, -P pairs, and K8 also at 1 chain,
+   a partial block and one comb column, then timed at the commit's one
+   launch over all 22 columns.
 4. paths, each run with the launch counters zeroed just before and read
    just after, each required to launch its own kernels:
    - batch verify: Kzg.load_json of the mainnet setup, every vendored
@@ -284,18 +289,54 @@ def kernel_phases(dev, smi: str) -> list[dict]:
             f"time {dev_ms} ms, host time {host_ms:.4f} ms a call over 1000 calls (plain "
             f"{plain_ms:.2f} ms, bound {max(bytes_ms, ops_ms):.6f} ms) [{smi}]")
 
-    # K2: the G1 square root over the 2B = 128 decompression lanes, and p - 2
-    a = field_elems(FP, 128)
-    e_sqrt = (FP.modulus + 1) // 4
-    sqr_mul = (e_sqrt.bit_length() - 1) + (bin(e_sqrt).count("1") - 1)
-    record("pow_chain", src, "kateth_tpu/fields/pallas_mont.py:253",
-           lambda: cuda_mont.pow_const(FP, a, e_sqrt),
-           lambda: cuda_mont.pow_const_plain(FP, a, e_sqrt),
-           10, 2, 2 * a.numel() * 8, 128 * sqr_mul * MULS_FP)
-    e_inv = FP.modulus - 2
-    if max_abs_err(cuda_mont.pow_const(FP, a, e_inv), cuda_mont.pow_const_plain(FP, a, e_inv)):
-        raise AssertionError("pow_chain with p - 2 differs from its plain version")
-    log("kernel pow_chain (p - 2, 128 lanes): equal to plain")
+    # K2, a team of 4 threads a lane running the sliding-window chain of
+    # cuda_mont.pow_chain: bit for bit at 1, 2, 127, 128, 129 and 4,097
+    # lanes with the port's exponents ((p+1)/4 and p - 2 over Fp, r - 2 over
+    # Fr), and at 129 lanes over both fields with e = 1, 2, 3, 2^100,
+    # 2^511 + 1 and a random 500-bit e; lanes 0-3 are N - 1, 0, 1 and one
+    def pow_inputs(spec, lanes):
+        a = field_elems(spec, lanes)
+        if lanes > 3:
+            a[2] = torch.as_tensor(L.int_to_digits(1, spec.n_digits)).to(dev)
+            a[3] = spec.tensor("one_mont", dev)
+        return a
+
+    e_sqrt, e_inv, e_fr = (FP.modulus + 1) // 4, FP.modulus - 2, FR.modulus - 2
+    e500 = int.from_bytes(rng.bytes(63), "big") >> 4 | 1 << 499
+    checks = [(spec, e, lanes) for spec, e in ((FP, e_sqrt), (FP, e_inv), (FR, e_fr))
+              for lanes in (1, 2, 127, 128, 129, 4097)]
+    checks += [(spec, e, 129) for spec in (FP, FR)
+               for e in (1, 2, 3, 1 << 100, (1 << 511) + 1, e500)]
+    for spec, e, lanes in checks:
+        a = pow_inputs(spec, lanes)
+        if max_abs_err(cuda_mont.pow_const(spec, a, e), cuda_mont.pow_const_plain(spec, a, e)):
+            raise AssertionError(f"pow_chain over {spec.name}, e of {e.bit_length()} bits, "
+                                 f"{lanes} lanes, differs from its plain version")
+    log(f"kernel pow_chain: equal to plain in {len(checks)} checks ((p+1)/4, p - 2 and r - 2 at "
+        "1, 2, 127, 128, 129 and 4097 lanes; e = 1, 2, 3, 2^100, 2^511 + 1 and a random "
+        "500-bit e over Fp and Fr at 129 lanes)")
+    # timed at the G1 square root over the 2B = 128 decompression lanes, and
+    # at the 1 lane of the easy part's inverse (p - 2); the bound counts the
+    # chain's products, a chain of dependent products per lane whose
+    # latency, not the card's rate, is the floor at these widths
+    chain = cuda_mont.pow_chain(e_sqrt)
+    a = pow_inputs(FP, 128)
+    k2 = record("pow_chain", src, "kateth_tpu/fields/pallas_mont.py:253",
+                lambda: cuda_mont.pow_const(FP, a, e_sqrt),
+                lambda: cuda_mont.pow_const_plain(FP, a, e_sqrt),
+                20, 2, 2 * a.numel() * 8, 128 * chain.n_products * MULS_FP)
+    k2["chain_products"] = chain.n_products
+    a1 = pow_inputs(FP, 1)
+    _, ms1, plain1, bytes1, ops1 = timed(
+        "pow_chain", lambda: cuda_mont.pow_const(FP, a1, e_inv),
+        lambda: cuda_mont.pow_const_plain(FP, a1, e_inv), 20, 2, 2 * a1.numel() * 8,
+        cuda_mont.pow_chain(e_inv).n_products * MULS_FP)
+    k2["one_lane"] = {"e": "p - 2", "chain_products": cuda_mont.pow_chain(e_inv).n_products,
+                      "ms": ms1, "plain_ms": plain1, "bound_ms": max(bytes1, ops1)}
+    log(f"kernel pow_chain: (p+1)/4 is {chain.n_products} dependent products a lane (window "
+        f"{chain.window}; bit by bit {e_sqrt.bit_length() - 1 + bin(e_sqrt).count('1') - 1}); "
+        f"1 lane, p - 2 ({k2['one_lane']['chain_products']} products): {ms1:.4f} ms (plain "
+        f"{plain1:.2f} ms, bound {max(bytes1, ops1):.6f} ms) [{smi}]")
 
     # K3, a team of threads per lane: bit for bit at 1 lane, a partial
     # warp, 3 lanes (single verify) and 4,096 (the setup's subgroup check),
@@ -391,15 +432,36 @@ def kernel_phases(dev, smi: str) -> list[dict]:
            lambda: cuda_pairing.g2_scalar_mul_plain(neg_g2, z),
            10, 1, (6 * 48 + 16) * 8, 256 * g2_products * MULS_FP)
 
-    # K7 at one window of the 64-blob windowed commit: 64 x 4096 sorted
-    # points in 32,768 chains of 8 additions (12 products each)
+    # K7, a team of 8 threads a chain: bit for bit at 1 chain and at 45
+    # (not a whole block of 8), then at one window of the 64-blob windowed
+    # commit, 64 x 4096 points in 32,768 chains of 8 additions (12
+    # products each), timed there; some chains hold an identity row, a
+    # point twice in a row (the doubling case) or a point and its negation
     src = "kateth_tpu_torch/csrc/msm.cu"
-    P = tuple(torch.as_tensor(np.resize(c, (64, 4096, 24))).to(dev) for c in g1mod.from_ints(pts))
+    P = [torch.as_tensor(np.resize(c, (64 * 4096, 24))).to(dev) for c in g1mod.from_ints(pts)]
+    g = cuda_msm.CHAIN
+    rows = torch.arange(64 * 4096, device=dev).reshape(-1, g)
+    ident = rows[0:4096:3, 2]
+    P[0][ident], P[1][ident], P[2][ident] = 0, FP.tensor("one_mont", dev), 0
+    rep = rows[1:4096:3, 4]
+    for c in P:
+        c[rep + 1] = c[rep]
+    neg = rows[2:4096:3, 6]
+    P[0][neg + 1], P[2][neg + 1] = P[0][neg], P[2][neg]
+    P[1][neg + 1] = L.neg(FP, P[1][neg])
+    P = tuple(c.reshape(64, 4096, 24) for c in P)
+    flat = tuple(c.reshape(-1, 24) for c in P)
+    for what, pts_k in (("1 chain", tuple(c[:g] for c in flat)),
+                        ("45 chains", tuple(c[:45 * g] for c in flat)),
+                        ("64 x 4096 points", P)):
+        if max_abs_err(cuda_msm.chain_prefix(pts_k, g), cuda_msm.chain_prefix_plain(pts_k, g)):
+            raise AssertionError(f"prefix_scan at {what} differs from its plain version")
+        log(f"kernel prefix_scan ({what}): equal to plain")
     lanes = 64 * 4096
     record("prefix_scan", src, "kateth_tpu/curves/pallas_msm.py:87",
-           lambda: cuda_msm.chain_prefix(P, cuda_msm.CHAIN),
-           lambda: cuda_msm.chain_prefix_plain(P, cuda_msm.CHAIN),
-           10, 2, 2 * 3 * lanes * 24 * 8, lanes * 12 * MULS_FP)
+           lambda: cuda_msm.chain_prefix(P, g),
+           lambda: cuda_msm.chain_prefix_plain(P, g),
+           20, 2, 2 * 3 * lanes * 24 * 8, lanes * 12 * MULS_FP)
 
     # K8 on gathered affine comb rows (about one in a hundred the identity):
     # checked at 1 chain, a partial block of 45 chains and one column of the

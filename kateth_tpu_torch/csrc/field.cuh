@@ -293,12 +293,6 @@ __device__ __forceinline__ void fsub<FpField>(uint32_t* r, const uint32_t* a, co
 }
 
 template <class F>
-__device__ __forceinline__ void fcopy(uint32_t* r, const uint32_t* a) {
-#pragma unroll
-  for (int j = 0; j < F::N; ++j) r[j] = a[j];
-}
-
-template <class F>
 __device__ __forceinline__ void fzero(uint32_t* r) {
 #pragma unroll
   for (int j = 0; j < F::N; ++j) r[j] = 0;

@@ -1,9 +1,9 @@
 // Kernels K1-K3: batched Montgomery multiply, pow chain and G1 ladder.
 //
 // Operands arrive in the PyTorch layout: int64 tensors of 16-bit digits,
-// lane-major ((lanes, D), digits contiguous).  In K1 and K2 each thread owns
-// one lane (K1 through a tile staged in shared memory); in K3 a team of 8
-// threads does (team.cuh).  Digits are packed into 32-bit limbs on load and
+// lane-major ((lanes, D), digits contiguous).  In K1 each thread owns one
+// lane, through a tile staged in shared memory; in K2 a team of 4 or 6
+// threads does (pow_team.cuh), in K3 a team of 8 (team.cuh).  Digits are packed into 32-bit limbs on load and
 // unpacked on store.
 //
 // C interface, bound with ctypes by kateth_tpu_torch/cuda_lib.py: every
@@ -15,6 +15,7 @@
 #include <cstdint>
 
 #include "field.cuh"
+#include "pow_team.cuh"
 #include "schedule_g1.cuh"
 
 using namespace kt;
@@ -110,35 +111,44 @@ void launch_mont_mul(const int64_t* a, const int64_t* b, int64_t* out, int64_t l
 
 // ---------------------------------------------------------------------------
 // K2 pow_chain.  Replaces pallas_mont.py::_pow_chain_flat.
-// Bound: operations.  a^e for a static e by MSB-first square-and-multiply:
-// (bits - 1) squarings plus (popcount - 1) multiplies per lane, each a
-// dependent chain, on few lanes (2B = 128 at the verify batch), so the
-// card is latency bound far below both rates.
-// Design: the exponent rides in the kernel's parameter space (same for
-// every lane, so the branch on each bit is warp-uniform), one thread per
-// lane, the accumulator in registers.
+// Bound: the latency of one dependent chain of products per lane.  Its
+// rate bound (0.0028 ms at 128 Fp lanes for (p+1)/4) is far below what a
+// chain of hundreds of dependent products on few lanes (2B = 128 at the
+// verify batch, 1 in the easy part's inverse) can reach.
+// Design: the chain is cuda_mont.pow_chain(e), a sliding window over the
+// static exponent built in Python (457 products for (p+1)/4 against the
+// bit-by-bit chain's 606), handed over in the kernel's parameter space; a
+// team of threads runs each lane's products (pow_team.cuh: 6 threads
+// spanning 8 lanes over Fp, 4 over Fr), the lane's odd powers in shared
+// memory.  A block is one warp (4 Fp or 8 Fr lanes), so a 128-lane launch
+// spreads over 32 SMs.
 // ---------------------------------------------------------------------------
 
-struct Exponent {
-  uint32_t w[16];  // little-endian 32-bit words, up to 512 bits
-  int n_bits;      // bit n_bits - 1 is the leading one
-};
+template <class F>
+__global__ void __launch_bounds__(32)
+    pow_chain_kernel(const int64_t* __restrict__ a, int64_t* __restrict__ out, int64_t lanes,
+                     PowChainArg chain) {
+  constexpr int D = 2 * F::N;
+  constexpr int kWidth = TeamField<F>::kWidth;
+  constexpr int kLanes = 32 / kWidth;  // lanes a block of one warp
+  __shared__ uint32_t table[kLanes][kPowMaxTable][F::N];
+  __shared__ int64_t scratch[kLanes][D];
+  const int team = threadIdx.x / kWidth;
+  const int64_t i = (int64_t)blockIdx.x * kLanes + team;
+  // a team past the last lane runs the last lane again (every thread of
+  // the warp takes part in the team's shuffles) and stores nothing
+  const int64_t src = i < lanes ? i : lanes - 1;
+  int64_t* dst = i < lanes ? out + i * D : scratch[team];
+  pow_chain_lane<F>(a + src * D, dst, chain, table[team],
+                    PowTeam{(int)threadIdx.x % kWidth, team * kWidth});
+}
 
 template <class F>
-__global__ void __launch_bounds__(kThreads)
-    pow_chain_kernel(const int64_t* __restrict__ a, int64_t* __restrict__ out,
-                     int64_t lanes, Exponent e) {
-  int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= lanes) return;
-  constexpr int D = 2 * F::N;
-  uint32_t base[F::N], acc[F::N];
-  load_digits<F>(base, a + i * D);
-  fcopy<F>(acc, base);  // the leading bit
-  for (int k = e.n_bits - 2; k >= 0; --k) {
-    fmul<F>(acc, acc, acc);
-    if ((e.w[k >> 5] >> (k & 31)) & 1u) fmul<F>(acc, acc, base);
-  }
-  store_digits<F>(out + i * D, acc);
+void launch_pow_chain(const int64_t* a, int64_t* out, int64_t lanes, const PowChainArg& chain,
+                      cudaStream_t s) {
+  constexpr int kLanes = 32 / TeamField<F>::kWidth;
+  const unsigned int blocks = (unsigned int)((lanes + kLanes - 1) / kLanes);
+  pow_chain_kernel<F><<<blocks, 32, 0, s>>>(a, out, lanes, chain);
 }
 
 // ---------------------------------------------------------------------------
@@ -218,19 +228,18 @@ int kateth_mont_mul(int field, const int64_t* a, const int64_t* b, int64_t* out,
   return (int)cudaGetLastError();
 }
 
-// exp_words: host array of little-endian 32-bit words of e, n_bits <= 512
+// chain: host copy of cuda_mont.pow_chain(e), n_steps <= kPowMaxSteps
 int kateth_pow_chain(int field, const int64_t* a, int64_t* out, int64_t lanes,
-                     const uint32_t* exp_words, int n_bits, void* stream) {
-  if (n_bits < 1 || n_bits > 512) return (int)cudaErrorInvalidValue;
+                     const PowChainArg* chain, void* stream) {
+  if (chain->n_steps < 0 || chain->n_steps > kPowMaxSteps || chain->table_max < 1 ||
+      chain->table_max >= 2 * kPowMaxTable)
+    return (int)cudaErrorInvalidValue;
   if (lanes <= 0) return 0;
-  Exponent e = {};
-  for (int k = 0; k < (n_bits + 31) / 32; ++k) e.w[k] = exp_words[k];
-  e.n_bits = n_bits;
   cudaStream_t s = (cudaStream_t)stream;
   if (field == 0)
-    pow_chain_kernel<FrField><<<blocks_for(lanes), kThreads, 0, s>>>(a, out, lanes, e);
+    launch_pow_chain<FrField>(a, out, lanes, *chain, s);
   else
-    pow_chain_kernel<FpField><<<blocks_for(lanes), kThreads, 0, s>>>(a, out, lanes, e);
+    launch_pow_chain<FpField>(a, out, lanes, *chain, s);
   return (int)cudaGetLastError();
 }
 

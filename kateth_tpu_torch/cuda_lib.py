@@ -45,7 +45,7 @@ _L = ctypes.c_int64
 #: kernel -> (library, C launcher, its argument types before the stream)
 KERNELS = {
     "mont_mul": ("kernels", "kateth_mont_mul", [_I, _P, _P, _P, _L]),
-    "pow_chain": ("kernels", "kateth_pow_chain", [_I, _P, _P, _L, _P, _I]),
+    "pow_chain": ("kernels", "kateth_pow_chain", [_I, _P, _P, _L, _P]),
     "g1_ladder": ("kernels", "kateth_g1_ladder", [_P, _P, _P, _P, _P, _P, _P, _L]),
     "miller": ("miller", "kateth_miller", [_P, _P, _P, _P, _P, _L]),
     "hard_part": ("hard_part", "kateth_hard_part", [_P, _P, _L]),
@@ -165,6 +165,10 @@ def check_cuda(*tensors: torch.Tensor) -> int:
 #: handle where this PyTorch has the call, which builds no Stream object
 _current_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None) or (
     lambda index: torch.cuda.current_stream(index).cuda_stream)
+#: the current CUDA device's index, and making a device current: the raw
+#: calls where this PyTorch has them
+_get_device = getattr(torch._C, "_cuda_getDevice", None) or torch.cuda.current_device
+_set_device = getattr(torch._C, "_cuda_setDevice", None) or torch.cuda.set_device
 
 #: kernel -> its C launcher, bound once
 _LAUNCHERS: dict[str, ctypes._CFuncPtr] = {}
@@ -177,11 +181,20 @@ def _launcher(kernel: str) -> ctypes._CFuncPtr:
 
 
 def launch(kernel: str, device: int, *args) -> None:
-    """Call `kernel`'s C launcher on the current stream of CUDA device
-    `device` (the index check_cuda returns), raise on a launch error, and
-    count the launch."""
+    """Call `kernel`'s C launcher on CUDA device `device` (the index
+    check_cuda returns), on that device's current stream, raise on a launch
+    error, and count the launch.  The launch runs with `device` current: a
+    caller on another device has it made current for the call and restored
+    after it."""
     fn = _LAUNCHERS.get(kernel) or _launcher(kernel)
-    err = fn(*args, _current_stream(device))
+    caller = _get_device()
+    if caller != device:
+        _set_device(device)
+    try:
+        err = fn(*args, _current_stream(device))
+    finally:
+        if caller != device:
+            _set_device(caller)
     if err != 0:
         msg = library(KERNELS[kernel][0]).kateth_error_string(err).decode()
         raise RuntimeError(f"CUDA kernel {kernel} failed to launch: {msg} ({err})")

@@ -4,12 +4,13 @@ version.
   K7 prefix_scan     -> kateth_tpu/curves/pallas_msm.py::_chunked_prefix_flat
   K8 comb_chain_sum  -> kateth_tpu/curves/pallas_msm.py::_comb_chain_sum_flat
 
-Both kernels (csrc/msm.cu) give each thread one chain of g consecutive
-point rows of the digit plane layout (rows, 24) and add the chain's points
-in order with the complete formulas, so the plain versions, loops of
-ops.padd in the same order, give the same projective digits.  K8 stages
-its rows with 16-byte copies, so its wrapper hands it 16-byte aligned
-rows.  On a CPU tensor a wrapper runs the plain version instead.
+Both kernels (csrc/msm.cu) give a team of 8 threads one chain of g
+consecutive point rows of the digit plane layout (rows, 24) and add the
+chain's points in order with the complete formulas, so the plain versions,
+loops of ops.padd in the same order, give the same projective digits.
+Both stage their rows with 16-byte copies, so the wrappers hand them
+16-byte aligned rows.  On a CPU tensor a wrapper runs the plain version
+instead.
 """
 
 from __future__ import annotations
@@ -35,6 +36,12 @@ def _chains(c: torch.Tensor, g: int) -> torch.Tensor:
     return c.reshape(*c.shape[:-2], c.shape[-2] // g, g, FP.n_digits)
 
 
+def _aligned16(c: torch.Tensor) -> torch.Tensor:
+    """c contiguous at a 16-byte boundary (a fresh copy if it is not)."""
+    c = c.contiguous()
+    return c if c.data_ptr() % 16 == 0 else c.clone()
+
+
 # --- K7 ---------------------------------------------------------------------
 
 def chain_prefix_plain(p, g: int):
@@ -54,7 +61,7 @@ def chain_prefix(p, g: int):
     p is a projective tuple of (..., N, 24) Montgomery coordinates."""
     if p[0].device.type == "cpu":
         return chain_prefix_plain(p, g)
-    pts = [c.contiguous() for c in p]
+    pts = [_aligned16(c) for c in p]
     chains = _chains(pts[0], g).shape[:-2].numel()
     outs = [torch.empty_like(c) for c in pts]
     dev = cuda_lib.check_cuda(*pts, *outs)
@@ -109,7 +116,7 @@ def comb_chain_sum(x: torch.Tensor, y: torch.Tensor, flags: torch.Tensor, g: int
         raise ValueError("comb_chain_sum takes x, y (..., N, 24) and flags (..., N)")
     if x.device.type == "cpu":
         return comb_chain_sum_plain(x, y, flags, g)
-    x, y = (c.contiguous() if c.data_ptr() % 16 == 0 else c.clone() for c in (x, y))
+    x, y = _aligned16(x), _aligned16(y)
     fl = flags.to(torch.int64).contiguous()
     shape = _chains(x, g).shape[:-2]
     outs = [torch.empty((*shape, FP.n_digits), dtype=torch.int64, device=x.device) for _ in range(3)]

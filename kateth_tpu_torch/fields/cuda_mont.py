@@ -1,4 +1,5 @@
-"""Wrappers for the field kernels K1-K3, each beside its plain version.
+"""Wrappers for the field kernels K1-K3, each beside its plain version, and
+K2's sliding-window chain.
 
 On a CUDA tensor a wrapper launches its kernel (csrc/kernels.cu) or raises;
 on a CPU tensor it runs the plain PyTorch version, which computes the same
@@ -15,7 +16,9 @@ each C launcher once and passes the caller's current stream.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+from dataclasses import dataclass
 
 import torch
 
@@ -69,6 +72,86 @@ def mont_mul(spec: L.FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tenso
 
 # --- K2 ---------------------------------------------------------------------
 
+#: the most steps a chain may have: csrc/pow_team.cuh PowChainArg holds this many
+POW_MAX_STEPS = 128
+#: the widest window a chain may use: 2^(w - 1) odd powers in the table
+POW_MAX_WINDOW = 6
+
+
+@dataclass(frozen=True)
+class PowChain:
+    """A sliding-window chain for a^e: acc = a^first, then for each step
+    (s, d) acc = acc^(2^s) a^d (d odd, or 0 for no product).  The odd
+    powers a^1, a^3, ..., a^table_max come first (a^2 and then one product
+    each)."""
+
+    window: int
+    first: int
+    steps: tuple[tuple[int, int], ...]
+
+    @property
+    def table_max(self) -> int:
+        return max([self.first, *(d for _, d in self.steps)])
+
+    @property
+    def n_products(self) -> int:
+        """Every Montgomery product of the chain, the table's included."""
+        table = 0 if self.table_max == 1 else 1 + (self.table_max - 1) // 2
+        return table + sum(s + (d != 0) for s, d in self.steps)
+
+    def words(self) -> list[int]:
+        """The steps as the launcher reads them: s | d << 10 (s <= 511,
+        d <= 63)."""
+        return [s | d << 10 for s, d in self.steps]
+
+
+def _sliding_window(e: int, w: int) -> PowChain:
+    """MSB first: a zero bit is a squaring; a one bit opens a window of at
+    most w bits that ends in a one."""
+    bits = bin(e)[2:]
+    windows, i = [], 0  # (end bit, value)
+    while i < len(bits):
+        if bits[i] == "0":
+            i += 1
+            continue
+        j = min(i + w, len(bits))
+        while bits[j - 1] == "0":
+            j -= 1
+        windows.append((j, int(bits[i:j], 2)))
+        i = j
+    (end, first), steps = windows[0], []
+    for j, v in windows[1:]:
+        steps.append((j - end, v))
+        end = j
+    if end < len(bits):
+        steps.append((len(bits) - end, 0))
+    return PowChain(w, first, tuple(steps))
+
+
+@functools.cache
+def pow_chain(e: int) -> PowChain:
+    """The chain with the fewest products over windows 1 .. POW_MAX_WINDOW
+    that fits the launcher (at most POW_MAX_STEPS steps; w = 5 always
+    does for e < 2^512: a window opens at most every 5 bits)."""
+    if not 1 <= e < 1 << 512:
+        raise ValueError("pow_chain takes 1 <= e < 2^512")
+    chains = [_sliding_window(e, w) for w in range(1, POW_MAX_WINDOW + 1)]
+    return min((c for c in chains if len(c.steps) <= POW_MAX_STEPS), key=lambda c: c.n_products)
+
+
+class _PowChainArg(ctypes.Structure):
+    """The launcher's chain, laid out as csrc/pow_team.cuh PowChainArg."""
+
+    _fields_ = [("n_steps", ctypes.c_int), ("first", ctypes.c_int), ("table_max", ctypes.c_int),
+                ("step", ctypes.c_uint16 * POW_MAX_STEPS)]
+
+
+@functools.cache
+def _chain_arg(e: int) -> _PowChainArg:
+    c = pow_chain(e)
+    return _PowChainArg(len(c.steps), c.first, c.table_max, (ctypes.c_uint16 * POW_MAX_STEPS)(*c.words()))
+
+
 def pow_const_plain(spec: L.FieldSpec, a: torch.Tensor, e: int) -> torch.Tensor:
     """a^e (e >= 1) by MSB-first square-and-multiply over the bits of e."""
     acc = a
@@ -80,7 +163,9 @@ def pow_const_plain(spec: L.FieldSpec, a: torch.Tensor, e: int) -> torch.Tensor:
 
 
 def pow_const(spec: L.FieldSpec, a: torch.Tensor, e: int) -> torch.Tensor:
-    """a^e for a static exponent 1 <= e < 2^512 (Montgomery in and out)."""
+    """a^e for a static exponent 1 <= e < 2^512 (Montgomery in and out);
+    the kernel runs pow_chain(e), whose products give the plain chain's
+    canonical digits."""
     if not 1 <= e < 1 << 512:
         raise ValueError("pow_const takes 1 <= e < 2^512")
     if a.device.type == "cpu":
@@ -89,12 +174,11 @@ def pow_const(spec: L.FieldSpec, a: torch.Tensor, e: int) -> torch.Tensor:
     a = a.contiguous()
     out = torch.empty_like(a)
     dev = cuda_lib.check_cuda(a, out)
-    words = (ctypes.c_uint32 * 16)(*[(e >> (32 * k)) & 0xFFFFFFFF for k in range(16)])
     lanes = math.prod(a.shape[:-1])
     if lanes:
         cuda_lib.launch(
             "pow_chain", dev, _field_id(spec), a.data_ptr(), out.data_ptr(), lanes,
-            ctypes.cast(words, ctypes.c_void_p), e.bit_length(),
+            ctypes.addressof(_chain_arg(e)),
         )
     return out
 

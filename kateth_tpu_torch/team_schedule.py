@@ -1,6 +1,6 @@
 """Round schedules of the team kernels K3 (G1 ladder), K4 (Miller loop),
-K5 (hard part of the final exponentiation), K6 (G2 ladder) and K8 (comb
-chain sum).
+K5 (hard part of the final exponentiation), K6 (G2 ladder), K7 (chain
+prefix sums) and K8 (comb chain sum).
 
 A team of threads works on one lane and runs each step's independent Fp
 operations in parallel, round by round.  This module writes each step as
@@ -13,6 +13,7 @@ rounds of instructions into a header in csrc/ that the kernels include:
                           squaring, a squaring and a product (a set bit of
                           |x|), and the five steps between the |x|-powers
   schedule_comb.cuh       one row of msm.cu's comb_chain_sum_kernel
+  schedule_prefix.cuh     one row of msm.cu's chain_prefix_kernel
   schedule_g2.cuh         one ladder bit of g2_ladder.cu's g2_ladder_kernel
 
 The headers are committed; the build only compiles them.  After editing
@@ -46,8 +47,8 @@ hard part's values lie.
 
 tests/test_torch_team_schedule.py runs the schedules with the plain Fp
 operations and holds them bit for bit against the plain ladder, the plain
-Miller loop, the plain hard part, the plain chain sums and the plain G2
-ladder.
+Miller loop, the plain hard part, the plain chain sums, the plain chain
+prefix sums and the plain G2 ladder.
 """
 
 from __future__ import annotations
@@ -336,6 +337,18 @@ def comb_step() -> tuple[Graph, dict[str, int]]:
     g = Graph(COMB_INPUTS)
     acc = tuple(g.inp(n) for n in G1_STATE)
     s = _padd(g, 1, acc, (g.inp("x2"), g.inp("y2"), g.sel(g.ONE, g.ZERO)))
+    return g, dict(zip(G1_STATE, s))
+
+
+PREFIX_INPUTS = [*G1_STATE, "x2", "y2", "z2"]
+
+
+def prefix_step() -> tuple[Graph, dict[str, int]]:
+    """acc = acc + (x2 : y2 : z2), a projective row of the windowed MSM's
+    bucket scan (cuda_msm.chain_prefix_plain)."""
+    g = Graph(PREFIX_INPUTS)
+    acc = tuple(g.inp(n) for n in G1_STATE)
+    s = _padd(g, 1, acc, tuple(g.inp(n) for n in ("x2", "y2", "z2")))
     return g, dict(zip(G1_STATE, s))
 
 
@@ -675,6 +688,10 @@ def comb_schedule() -> Schedule:
     return _schedule_all("comb", {"comb_step": comb_step()}, 8)
 
 
+def prefix_schedule() -> Schedule:
+    return _schedule_all("prefix", {"prefix_step": prefix_step()}, 8)
+
+
 def g2_schedule() -> Schedule:
     """A warp per lane: the widest product round, the addition's six Fp2
     products (18 Fp products after Karatsuba), runs in one pass."""
@@ -820,6 +837,7 @@ HEADERS = {
     "schedule_miller.cuh": miller_schedule,
     "schedule_hard_part.cuh": hard_part_schedule,
     "schedule_comb.cuh": comb_schedule,
+    "schedule_prefix.cuh": prefix_schedule,
     "schedule_g2.cuh": g2_schedule,
 }
 

@@ -1,9 +1,8 @@
 """The constants written into the CUDA sources (kateth_tpu_torch/csrc)
 equal the ones the Python side computes: moduli and Montgomery constants
 as 32-bit limbs, the Frobenius gammas, |x| of the Miller loop and the hard
-part, the curve constant 3b of the G1 point formulas and of the team
-kernels' schedules (the G2 ladder's among them); every C launcher's
-parameters match the ctypes types cuda_lib binds it with, and the build's
+part, the curve constant 3b of the team kernels' schedules (the G1 and
+G2 ones), K2's chain limits; every C launcher's parameters match the ctypes types cuda_lib binds it with, and the build's
 hash covers the sources.
 The kernels themselves build and run only on a GPU (chip_smoke.py); this
 holds their tables and interfaces here."""
@@ -79,8 +78,9 @@ def test_x_abs(name):
 
 
 def test_curve_constant_3b():
-    """b = 4: G1 formulas multiply by 3b = 12 (mul12 = 8a + 4a), as
-    curves/ops.py.  G2 ones by 3b' = 12 xi, and 36 xi = 3 (3b') in the
+    """b = 4: G1 formulas multiply by 3b = 12, as curves/ops.py: the chain
+    prefix kernel's traced addition (schedule_prefix.cuh) multiplies by
+    12 alone.  G2 ones by 3b' = 12 xi, and 36 xi = 3 (3b') in the
     doubling: the G2 ladder's traced schedule (schedule_g2.cuh) multiplies
     by exactly 12, 36 and 8 (8 Y^2); each 12 and 36 takes both components
     of xi v = (v0 - v1) + (v0 + v1) u for one Fp2 value v (pdouble's
@@ -88,8 +88,8 @@ def test_curve_constant_3b():
     three values by 12, one by 36), and the 8 no xi."""
     from kateth_tpu_torch import team_schedule as gs
 
-    g1 = _read("g1.cuh")
-    assert re.search(r"fadd<FpField>\(a8, a4, a4\);\s*fadd<FpField>\(r, a8, a4\);", g1)
+    (prog,) = gs.prefix_schedule().programs
+    assert {k for _, ins in prog.rounds for op, _, _, k in ins if op == gs.SMALL} == {12}
     (prog,) = gs.g2_schedule().programs
     ks = {k for _, ins in prog.rounds for op, _, _, k in ins if op == gs.SMALL}
     assert ks == {12, 36, 8}
@@ -118,6 +118,18 @@ def test_schedule_constants():
     (prog,) = gs.g1_schedule().programs
     ks = {k for _, ins in prog.rounds for op, _, _, k in ins if op == gs.SMALL}
     assert ks == {3 * b, 9 * b, 8}
+
+
+def test_pow_chain_limits():
+    """K2's chain fits pow_team.cuh: its steps in kPowMaxSteps, its odd
+    powers (windows of at most POW_MAX_WINDOW bits) in kPowMaxTable."""
+    from kateth_tpu_torch.fields import cuda_mont
+
+    src = _read("pow_team.cuh")
+    steps = int(re.search(r"kPowMaxSteps = (\d+);", src).group(1))
+    table = int(re.search(r"kPowMaxTable = (\d+);", src).group(1))
+    assert steps == cuda_mont.POW_MAX_STEPS
+    assert table == 1 << (cuda_mont.POW_MAX_WINDOW - 1)
 
 
 def test_source_hash_covers_only_cuda_sources(tmp_path, monkeypatch):

@@ -1,13 +1,15 @@
 """The round schedules of the team kernels K3 (G1 ladder), K4 (Miller
-loop), K5 (hard part), K6 (G2 ladder) and K8 (comb chain sum),
-kateth_tpu_torch/csrc/schedule_{g1,miller,hard_part,g2,comb}.cuh, on the CPU.
+loop), K5 (hard part), K6 (G2 ladder), K7 (chain prefix sums) and K8 (comb
+chain sum), kateth_tpu_torch/csrc/schedule_{g1,miller,hard_part,g2,prefix,
+comb}.cuh, on the CPU.
 
 The kernels are small interpreters over these tables, so a wrong slot or
 a wrong formula shows here: the committed headers are what the generator
 emits now, and the tables, run round by round with the plain Fp operations
 of kateth_tpu_torch.fields.limbs, give the plain ladder's, the plain
-Miller loop's, the plain hard part's, the plain chain sums' and the plain
-G2 ladder's digits bit for bit.  No JAX."""
+Miller loop's, the plain hard part's, the plain chain sums', the plain
+chain prefix sums' and the plain G2 ladder's digits bit for bit.  No
+JAX."""
 
 import os
 
@@ -82,8 +84,9 @@ def test_committed_header_is_generated(fname):
 
 @pytest.mark.parametrize(
     "make",
-    [gs.g1_schedule, gs.miller_schedule, gs.hard_part_schedule, gs.comb_schedule, gs.g2_schedule],
-    ids=["g1", "miller", "hard_part", "comb", "g2"])
+    [gs.g1_schedule, gs.miller_schedule, gs.hard_part_schedule, gs.comb_schedule, gs.g2_schedule,
+     gs.prefix_schedule],
+    ids=["g1", "miller", "hard_part", "comb", "g2", "prefix"])
 def test_product_rounds_fit_the_team(make):
     """Every product round fits the team, so a round is one product deep
     (building the schedule has already run the generator's hazard
@@ -226,3 +229,35 @@ def test_comb_schedule_matches_plain_chain_sum():
         _run(rounds, slots, flags[:, k])
     for n, w in zip(gs.G1_STATE, want):
         assert torch.equal(slots[sched.slot_of[n]], w[:, 0])
+
+
+def test_prefix_schedule_matches_plain_chain_prefix():
+    """The schedule over the rows of three chains of 8, the running sum read
+    after every row, against cuda_msm.chain_prefix_plain: the same
+    projective digits.  The rows are projective with random Z; among them
+    the identity (0 : 1 : 0), a point repeated (the doubling case of the
+    complete addition) and a point followed by its negation."""
+    rng = np.random.default_rng(0x7072)
+    pts = [host.jac_mul_raw(host.FP_OPS, host.G1_GEN, int(k)) for k in rng.integers(1, 1 << 62, 4)]
+    base = tuple(torch.as_tensor(c) for c in g1mod.from_ints([*pts, host.jac_infinity(host.FP_OPS)]))
+    neg = ops.pneg(ops.FP_FIELD, base)
+    ident = 4
+    # (point, negated) per row
+    chains = [[(0, 0), (1, 0), (1, 0), (ident, 0), (2, 0), (2, 1), (3, 0), (0, 0)],
+              [(ident, 0), (ident, 0), (0, 0), (0, 1), (0, 0), (0, 0), (3, 1), (ident, 0)],
+              [(k % 4, k % 3 == 0) for k in range(8)]]
+    rows = [[(neg if n else base)[i][p] for p, n in ch] for i in range(3) for ch in chains]
+    P = tuple(torch.stack([torch.stack(rows[3 * i + c]) for c in range(3)]) for i in range(3))
+    lam = torch.as_tensor(np.stack([FP.from_int(int(v)) for v in rng.integers(1, 1 << 62, 24)]))
+    P = tuple(L.mont_mul(FP, c, lam.reshape(3, 8, FP.n_digits)) for c in P)  # (3, 8, 24) each
+    want = cuda_msm.chain_prefix_plain(P, 8)
+
+    sched = gs.prefix_schedule()
+    slots = _slots(sched, 3, {"y": FP.tensor("one_mont", "cpu")})  # acc = (0 : 1 : 0)
+    rounds = _rounds(sched.programs[0])
+    for k in range(8):
+        for n, c in zip(("x2", "y2", "z2"), P):
+            slots[sched.slot_of[n]] = c[:, k]
+        _run(rounds, slots)
+        for n, w in zip(gs.G1_STATE, want):
+            assert torch.equal(slots[sched.slot_of[n]], w[:, k]), (n, k)

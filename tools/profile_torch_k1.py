@@ -8,8 +8,9 @@ point formulas call it) and 1,000 calls of each piece a kernel wrapper's
 host path may take, with time.perf_counter and no synchronisation inside
 a loop: the routes the wrapper takes and the dearer ones it can avoid
 (broadcasting equal shapes, a Stream object a call, binding the launcher a
-call, an import a call).  An empty loop's time is subtracted from each
-piece.  It also times a call between CUDA events (median of 50) and the
+call, an import a call), and the current-device check that each launch
+makes before it selects the operands' device.  An empty loop's time is
+subtracted from each piece.  It also times a call between CUDA events (median of 50) and the
 kernel's device time per launch from torch.profiler at 128 and 8,192 Fp
 lanes and 262,144 Fr lanes.  Prints one JSON object.
 
@@ -122,6 +123,9 @@ def main() -> int:
             lambda: launcher(1, a.data_ptr(), b.data_ptr(), out.data_ptr(), lanes, stream),
         "count_mont_mul_lanes": lambda: cuda_lib.count_mont_mul_lanes(lanes),
     }
+    if hasattr(torch._C, "_cuda_getDevice"):
+        pieces["torch._C._cuda_getDevice() (the launch's device check)"] = torch._C._cuda_getDevice
+    pieces["torch.cuda.current_device()"] = torch.cuda.current_device
     if hasattr(torch._C, "_cuda_getCurrentRawStream"):
         pieces["torch._C._cuda_getCurrentRawStream(index)"] = (
             lambda: torch._C._cuda_getCurrentRawStream(index))
