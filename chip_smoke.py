@@ -36,7 +36,24 @@ Phases, one line each; any failure exits non-zero before the last line:
      vector, and one 64-blob blobs_to_kzg_commitments (commitments/s), which
      must launch K8 once;
    - commit with the windowed Pippenger (comb_h = 0): every
-     blob_to_kzg_commitment vector.
+     blob_to_kzg_commitment vector;
+   - form conversion: 64 mainnet blobs (the valid blob_to_kzg_commitment
+     vectors' blobs, repeated) through blobs_to_coefficients and back
+     through coefficients_to_blobs, which must give the same bytes; two
+     blobs' coefficients evaluated by Horner in Python integers at four
+     bit-reversed roots must give the blobs' elements; a wrong coefficient
+     count must raise KzgError;
+   - the uncached device setup load: TorchSetup.load_json of the mainnet
+     setup with no cache, whose eight tensors must equal the setup the
+     batch-verify path loaded; its 65 G2 points decoded on the card (timed
+     apart) must equal host.g2_decompress and compress back to the JSON's
+     encodings (timed); a setup with one G2 point on the twist but outside
+     G2 must raise KzgError;
+   - sharding over an NCCL group of world size 1: sharded_ntt_from_brp of
+     the 64 blobs must equal lagrange_brp_to_monomial, sharded_msm of one
+     4096-point MSM must equal msm.msm in affine, sharded_commit_comb of
+     the 64 blobs (with the comb path's table) must give their vectors'
+     commitments, and a small windowed sharded_commit must equal msm.msm.
    A vector's output must match; `output: null` must raise KzgError.
 5. the kernels JSON line (with K1's launches by lane count), the
    nvidia-smi line, and the result line.
@@ -52,6 +69,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -502,6 +520,9 @@ PATH_KERNELS = {
     "single-point verify": ("g1_ladder", "miller", "hard_part", "g2_ladder"),
     "commit and prove (comb_h = 12)": ("mont_mul", "pow_chain", "g1_ladder", "comb_chain_sum"),
     "commit (comb_h = 0)": ("prefix_scan",),
+    "form conversion": ("mont_mul",),
+    "setup load (uncached)": ("mont_mul", "pow_chain", "g1_ladder", "g2_ladder"),
+    "sharding (world of 1)": ("mont_mul", "prefix_scan", "comb_chain_sum"),
 }
 
 
@@ -548,15 +569,47 @@ def run_vectors(op: str, call) -> None:
     log(f"vectors: {op}: {len(names)} pass in {time.perf_counter() - t0:.2f} s")
 
 
+def twist_point_outside_g2() -> bytes:
+    """The 96-byte encoding of the first point with x = (k, 1) on the twist
+    y^2 = x^3 + 4(1 + u) that lies outside G2, by the host's arithmetic."""
+    from kateth_tpu_torch import host
+
+    k = 1
+    while True:
+        x = (k, 1)
+        y = host.fp2_sqrt(host.fp2_add(host.fp2_mul(host.fp2_sqr(x), x), host.FP2_OPS.b))
+        if y is not None:
+            b = bytearray(x[1].to_bytes(48, "big") + x[0].to_bytes(48, "big"))
+            b[0] |= 0x80 | (0x20 if host._fp2_is_larger(y) else 0)
+            try:
+                host.g2_decompress(bytes(b))
+            except host.NotInGroup:
+                return bytes(b)
+        k += 1
+
+
+def same_affine(p, q) -> bool:
+    """X1 Z2 = X2 Z1 and Y1 Z2 = Y2 Z1 over G1, neither the identity."""
+    from kateth_tpu_torch.fields import limbs as L
+    from kateth_tpu_torch.fields.specs import FP
+
+    (X1, Y1, Z1), (X2, Y2, Z2) = p, q
+    lhs = L.mont_mul(FP, torch.stack([X1, Y1]), Z2)
+    rhs = L.mont_mul(FP, torch.stack([X2, Y2]), Z1)
+    return torch.equal(lhs, rhs) and not bool(L.is_zero(Z1).any())
+
+
 def main_path(dev, smi: str) -> tuple[dict, dict]:
     """Each path of the port through its public entry points at mainnet
     width; returns the launches per kernel summed over the paths, and
     mont_mul's launches by lane count."""
     from dataclasses import replace
 
-    from kateth_tpu_torch import cuda_lib
-    from kateth_tpu_torch.kzg import Kzg
-    from kateth_tpu_torch.kzg.setup import DEFAULT_TRUSTED_SETUP
+    from kateth_tpu_torch import cuda_lib, host
+    from kateth_tpu_torch.curves import compress, decompress
+    from kateth_tpu_torch.curves import g2 as g2mod
+    from kateth_tpu_torch.kzg import Kzg, KzgError, TorchSetup
+    from kateth_tpu_torch.kzg.setup import DEFAULT_TRUSTED_SETUP, FIELDS
 
     totals = {k: 0 for k in cuda_lib.KERNELS}
     k1_buckets = {k: 0 for k in cuda_lib.MONT_MUL_LAUNCHES}
@@ -634,8 +687,145 @@ def main_path(dev, smi: str) -> tuple[dict, dict]:
     drive("batch verify", batch_verify, totals, k1_buckets)
     drive("single-point verify", single_verify, totals, k1_buckets)
     drive("commit and prove (comb_h = 12)", commit_comb, totals, k1_buckets)
+    def form_conversion():
+        kzg = holder["kzg"]
+        d = os.path.join(VECTORS, "blob_to_kzg_commitment")
+        cases = [parse_vector(os.path.join(d, name, "data.yaml")) for name in sorted(os.listdir(d))]
+        cases = [c for c in cases if c["output"] is not None]
+        picks = [cases[i % len(cases)] for i in range(64)]
+        blobs = holder["blobs"] = [c["input"]["blob"] for c in picks]
+        holder["commitments"] = [c["output"] for c in picks]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        coeffs = kzg.blobs_to_coefficients(blobs)
+        t1 = time.perf_counter()
+        back = kzg.coefficients_to_blobs(coeffs)
+        t2 = time.perf_counter()
+        if back != blobs:
+            raise AssertionError("coefficients_to_blobs(blobs_to_coefficients(blobs)) != blobs")
+        n = kzg.config.n
+        roots, brp = host.roots_of_unity(n), host.brp_indices(n)
+        for b in (0, 1):
+            cs = [int.from_bytes(c, "big") for c in coeffs[b]]
+            for i in (0, 1, n // 2 + 3, n - 1):
+                acc = 0
+                for c in reversed(cs):
+                    acc = (acc * roots[brp[i]] + c) % host.R
+                if acc.to_bytes(32, "big") != blobs[b][32 * i:32 * (i + 1)]:
+                    raise AssertionError(f"blob {b}'s coefficients miss its element {i}")
+        try:
+            kzg.coefficients_to_blobs([coeffs[0][:-1]])
+        except KzgError:
+            pass
+        else:
+            raise AssertionError("a wrong coefficient count did not raise")
+        log(f"form conversion: 64 blobs, blobs_to_coefficients {t1 - t0:.3f} s, "
+            f"coefficients_to_blobs {t2 - t1:.3f} s, round trip and Horner checks pass [{smi}]")
+
+    def setup_load():
+        base = holder["kzg"].setup
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        setup = TorchSetup.load_json(DEFAULT_TRUSTED_SETUP, device=dev, cache_dir=None)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+        for k in FIELDS:
+            if not torch.equal(getattr(setup, k), getattr(base, k)):
+                raise AssertionError(f"uncached setup load: {k} differs from the loaded setup")
+        with open(DEFAULT_TRUSTED_SETUP) as f:
+            obj = json.load(f)
+        encs = [bytes.fromhex(h[2:]) for h in obj["g2_monomial"]]
+        raw = torch.as_tensor(np.frombuffer(b"".join(encs), dtype=np.uint8).reshape(-1, 96).copy())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pt, enc, curve, sub = decompress.g2_decompress(raw.to(dev))
+        torch.cuda.synchronize()
+        t_g2 = time.perf_counter() - t0
+        if not bool((enc & curve & sub).all()):
+            raise AssertionError("a mainnet G2 point failed its checks on the card")
+        want = g2mod.from_ints([host.g2_decompress(b) for b in encs])
+        for got_c, want_c in zip(pt, want):
+            if not np.array_equal(got_c.cpu().numpy(), want_c):
+                raise AssertionError("the card's G2 points differ from host.g2_decompress")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = compress.g2_points_to_bytes(pt)
+        t_comp = time.perf_counter() - t0
+        if again != encs:
+            raise AssertionError("g2_points_to_bytes does not give back the setup's encodings")
+        obj["g2_monomial"][2] = "0x" + twist_point_outside_g2().hex()
+        os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+            bad = os.path.join(tmp, "setup.json")
+            with open(bad, "w") as f:
+                json.dump(obj, f)
+            try:
+                TorchSetup.load_json(bad, device=dev, cache_dir=None)
+            except KzgError:
+                pass
+            else:
+                raise AssertionError("a G2 point outside the subgroup did not raise")
+        log(f"setup load: uncached load_json {t_load:.2f} s, equal to the loaded setup; 65 G2 "
+            f"points decoded on the card in {t_g2:.2f} s, equal to host.g2_decompress; "
+            f"compressed back in {t_comp:.3f} s; a twist point outside G2 raises [{smi}]")
+
+    def sharding():
+        import torch.distributed as dist
+
+        from kateth_tpu_torch import ntt
+        from kateth_tpu_torch.curves import msm
+        from kateth_tpu_torch.kzg import protocol
+        from kateth_tpu_torch.parallel import (
+            distributed_init, sharded_commit, sharded_commit_comb, sharded_msm, sharded_ntt_from_brp)
+
+        kzg = holder["kzg"]
+        distributed_init(store=dist.HashStore(), rank=0, world_size=1)
+        try:
+            joined = b"".join(holder["blobs"])
+            raw = torch.as_tensor(np.frombuffer(joined, dtype=np.uint8).reshape(64, -1).copy())
+            elements, _ = protocol.decode_blobs(raw.to(dev))
+            x = protocol.fr_to_mont(elements)
+
+            def timed(fn):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn()
+                torch.cuda.synchronize()
+                return out, time.perf_counter() - t0
+
+            # the first collective also sets up NCCL's communicator
+            _, t_first = timed(lambda: sharded_ntt_from_brp(x, inverse=True))
+            got, t_ntt = timed(lambda: sharded_ntt_from_brp(x, inverse=True))
+            want, t_ntt_ref = timed(lambda: ntt.lagrange_brp_to_monomial(x))
+            if not torch.equal(got, want):
+                raise AssertionError("sharded_ntt_from_brp != lagrange_brp_to_monomial")
+            points = kzg.setup.g1_points
+            got, t_msm = timed(lambda: sharded_msm(points, elements[0]))
+            want, t_msm_ref = timed(lambda: msm.msm(points, elements[0]))
+            if not same_affine(got, want):
+                raise AssertionError("sharded_msm != msm.msm in affine")
+            got, t_comb = timed(lambda: sharded_commit_comb(kzg._comb_table, elements, kzg.config.comb_h))
+            if compress.points_to_bytes(got) != holder["commitments"]:
+                raise AssertionError("sharded_commit_comb differs from the vectors' commitments")
+            small = tuple(c[:256] for c in points)
+            got = sharded_commit(small, elements[:2, :256])
+            if not all(torch.equal(a, b) for a, b in zip(got, msm.msm(small, elements[:2, :256]))):
+                raise AssertionError("sharded_commit differs from msm.msm")
+        finally:
+            dist.destroy_process_group()
+        log(f"sharding (NCCL, world of 1): sharded_ntt_from_brp of 64 blobs {t_ntt:.3f} s "
+            f"(first call {t_first:.3f} s; lagrange_brp_to_monomial {t_ntt_ref:.3f} s), "
+            f"sharded_msm of 4096 points {t_msm:.2f} s (msm.msm {t_msm_ref:.2f} s), "
+            f"sharded_commit_comb of 64 blobs {t_comb:.3f} s, all equal to the single-device "
+            f"results [{smi}]")
+
     drive("commit (comb_h = 0)", commit_msm, totals, k1_buckets)
-    log(f"mont_mul launches by lanes over the four paths: {k1_buckets}")
+    for path, fn in (("form conversion", form_conversion), ("setup load (uncached)", setup_load),
+                     ("sharding (world of 1)", sharding)):
+        t0 = time.perf_counter()
+        drive(path, fn, totals, k1_buckets)
+        log(f"path {path}: {time.perf_counter() - t0:.2f} s")
+    log(f"mont_mul launches by lanes over the seven paths: {k1_buckets}")
     return totals, k1_buckets
 
 

@@ -1,5 +1,6 @@
 """The byte-level KZG operations: commitments, proofs, single-point and
-batch blob-proof verification.
+batch blob-proof verification, and the conversion of blobs to monomial
+coefficients and back.
 
 Invalid encodings, non-canonical field elements and off-curve or
 out-of-subgroup points raise KzgError; `False` is returned only for an
@@ -17,7 +18,7 @@ import hashlib
 import numpy as np
 import torch
 
-from .. import host
+from .. import host, ntt
 from ..curves import compress, comb, decompress
 from ..fields.specs import FR
 from ..host import KzgError
@@ -218,6 +219,40 @@ class Kzg:
         z_vals = self._challenges(blobs, commitments) + [0] * (nc - n)
         _, q_plain = self._evaluate_and_quotient(elements, z_vals)
         return compress.points_to_bytes(self._commit_elements(q_plain))[:n]
+
+    # -- polynomial form conversion (the NTT, ntt.py) ----------------------------
+
+    @staticmethod
+    def _fr_planes_to_byteslists(plain: torch.Tensor) -> list[list[bytes]]:
+        """(B, N, 16) plain digit planes -> per-blob lists of 32-byte
+        big-endian scalars, in one read-back and one byte conversion."""
+        arr = plain.cpu().numpy()
+        raw = arr[..., ::-1].astype(">u2").tobytes()  # most significant digit first
+        B, N = arr.shape[:2]
+        return [[raw[(b * N + i) * 32 : (b * N + i + 1) * 32] for i in range(N)] for b in range(B)]
+
+    def blobs_to_coefficients(self, blobs) -> list[list[bytes]]:
+        """Blobs (evaluations over the bit-reversed roots) -> monomial
+        coefficients, ascending degree, 32-byte big-endian each."""
+        n = len(blobs)
+        elements, ok = self._decode_blobs(blobs, pad_to=self._canon(n))
+        self._check_ok(ok[:n])
+        cm = ntt.lagrange_brp_to_monomial(protocol.fr_to_mont(elements))
+        return self._fr_planes_to_byteslists(protocol.fr_from_mont(cm))[:n]
+
+    def coefficients_to_blobs(self, coeffs) -> list[bytes]:
+        """Monomial coefficients (per-blob lists of 32-byte big-endian
+        scalars, ascending degree) -> blobs.  A wrong count or a
+        non-canonical coefficient raises KzgError."""
+        for cs in coeffs:
+            if len(cs) != self.config.n:
+                raise KzgError("invalid coefficient count")
+        joined = [b"".join(bytes(c) for c in cs) for cs in coeffs]
+        n = len(joined)
+        elements, ok = self._decode_blobs(joined, pad_to=self._canon(n))
+        self._check_ok(ok[:n])
+        ev = ntt.monomial_to_lagrange_brp(protocol.fr_to_mont(elements))
+        return [b"".join(cs) for cs in self._fr_planes_to_byteslists(protocol.fr_from_mont(ev))[:n]]
 
     # -- verification -------------------------------------------------------
 

@@ -1,12 +1,14 @@
 """The trusted setup as tensors on one device.
 
-`TorchSetup.load_json` parses the ceremony JSON, decompresses the G1
-Lagrange points on the device (square root by kernel K2, subgroup check by
-kernel K3 on a CUDA device), decompresses and checks the G2 points on the
-host, and applies the bit-reversal permutation to the G1 table and the
-roots of unity.  The result is cached as an .npz of digit planes under
-~/.cache/kateth_tpu_torch, keyed on the file's contents.  Any invalid point
-raises KzgError.
+`TorchSetup.load_json` parses the ceremony JSON and decompresses every point
+on the setup's device: the 4096 G1 Lagrange points (square root by kernel
+K2, subgroup check by kernel K3 on a CUDA device) and the 65 G2 monomial
+points (the Fp2 square root's chains on the plain Fp2 products, whose
+Montgomery products are kernel K1; the subgroup check by kernel K6).  Any
+point that fails its encoding, curve or subgroup check raises KzgError.
+It keeps [tau]_2, applies the bit-reversal permutation to the G1 table and
+the roots of unity, and caches the result as an .npz of digit planes under
+~/.cache/kateth_tpu_torch, keyed on the file's contents.
 """
 
 from __future__ import annotations
@@ -21,7 +23,6 @@ import torch
 
 from .. import host
 from ..curves import decompress
-from ..curves import g2 as g2mod
 from ..fields.specs import FR
 from .config import MAINNET, KzgConfig
 
@@ -84,16 +85,21 @@ class TorchSetup:
         def unhex(h):
             return bytes.fromhex(h[2:] if h.startswith("0x") else h)
 
-        g1b = np.frombuffer(b"".join(unhex(h) for h in g1_hex), dtype=np.uint8)
-        g1b = torch.as_tensor(g1b.reshape(config.n, 48).copy()).to(device)
-        pt, enc, curve, sub = decompress.g1_decompress(g1b)
+        def points(hexes, width, group):
+            raw = [unhex(h) for h in hexes]
+            if any(len(b) != width for b in raw):
+                raise host.KzgError(f"invalid {group} point in trusted setup")
+            arr = np.frombuffer(b"".join(raw), dtype=np.uint8).reshape(len(raw), width)
+            return torch.as_tensor(arr.copy()).to(device)
+
+        pt, enc, curve, sub = decompress.g1_decompress(points(g1_hex, 48, "G1"))
         if not bool((enc & curve & sub).all()):
             raise host.KzgError("invalid G1 point in trusted setup")
-        try:  # every G2 point is checked; only [tau]_2 is kept
-            g2 = [host.g2_decompress(unhex(h)) for h in g2_hex]
-        except host.DecompressError as e:
-            raise host.KzgError(f"invalid G2 point in trusted setup: {e}") from e
-        t2x, t2y, t2z = g2mod.from_ints([g2[1]])
+        # every G2 point is checked, its encoding and curve before the
+        # subgroup; only [tau]_2 is kept
+        pt2, enc, curve = decompress.g2_decompress_nosub(points(g2_hex, 96, "G2"))
+        if not bool((enc & curve).all()) or not bool(decompress.g2_subgroup_check(pt2).all()):
+            raise host.KzgError("invalid G2 point in trusted setup")
 
         brp = host.brp_indices(config.n)
         roots_nat = host.roots_of_unity(config.n)
@@ -101,7 +107,7 @@ class TorchSetup:
         g1 = [c[torch.as_tensor(brp, device=device)].cpu().numpy() for c in pt]
         return cls.from_arrays(
             g1
-            + [t2x[0], t2y[0], t2z[0]]
+            + [c[1].cpu().numpy() for c in pt2]
             + [np.stack([FR.from_int(r) for r in roots])]
             + [np.stack([FR.from_int(pow(r, host.R - 2, host.R)) for r in roots])],
             config,

@@ -90,3 +90,34 @@ def test_load_json_defaults_to_cuda(tmp_path, monkeypatch):
         TorchSetup.load_json(missing, device=None)
     with pytest.raises(FileNotFoundError):
         Kzg.load_json(missing, device="cpu")
+
+
+def _init_backend(monkeypatch, **kw):
+    """The backend distributed_init asks torch.distributed for."""
+    import torch.distributed as dist
+
+    from kateth_tpu_torch.parallel import distributed_init
+
+    seen = []
+    monkeypatch.setattr(dist, "is_initialized", lambda: False)
+    monkeypatch.setattr(dist, "init_process_group", lambda backend, **_: seen.append(backend))
+    distributed_init(init_method="tcp://localhost:1", rank=0, world_size=1, **kw)
+    return seen[0]
+
+
+@pytest.mark.parametrize("entry", ["local_device", "distributed_init"])
+def test_parallel_entry_points_default_to_cuda(entry, monkeypatch):
+    """kateth_tpu_torch.parallel: with no CUDA device, local_device raises
+    unless the caller names the CPU, and the process group is NCCL unless
+    the caller names gloo or the CPU."""
+    from kateth_tpu_torch.parallel import local_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    if entry == "local_device":
+        with pytest.raises(RuntimeError, match="CUDA"):
+            local_device(0)
+        assert local_device(0, device="cpu") == torch.device("cpu")
+    else:
+        assert _init_backend(monkeypatch) == "nccl"
+        assert _init_backend(monkeypatch, device="cpu") == "gloo"
+        assert _init_backend(monkeypatch, backend="gloo") == "gloo"
