@@ -26,9 +26,25 @@ Phases, one line each; any failure exits non-zero before the last line:
 4. paths, each run with the launch counters zeroed just before and read
    just after, each required to launch its own kernels:
    - batch verify: Kzg.load_json of the mainnet setup, every vendored
-     verify_blob_kzg_proof_batch and verify_blob_kzg_proof vector, then
-     64-blob batches through verify_blob_kzg_proof_batches (proofs/s, for
-     information);
+     verify_blob_kzg_proof_batch and verify_blob_kzg_proof vector, then a
+     64-blob batch through verify_blob_kzg_proof_batches, which captures
+     the batch's CUDA graph (its memory and its launches a replay are
+     printed), then the streaming loop of verify_blob_kzg_proof_batches
+     over 8 x 64 blobs with its dispatches under
+     torch.cuda.set_sync_debug_mode("error"): a dispatch that waited for
+     the device would raise (proofs/s, for information);
+   then, apart from the paths' counts: the graph's verdict and packed
+   masks held bit for bit against a direct eager call of
+   protocol.verify_blob_batch_fused and pairing_check on the valid batch
+   and on four bad 64-blob batches (a non-canonical blob element, a
+   commitment with a bad encoding, a proof off the curve, a wrong proof),
+   each also through verify_blob_kzg_proof_batch (its KzgError or False);
+   the launches of a replay equal to those of the eager call; a 128-blob
+   batch, whose graph is captured into the same memory pool (the bytes
+   each capture reserved are printed); two threads sharing the Kzg, one
+   verifying the valid batch and one the wrong proof, 4 times each, each
+   required to get its own verdicts; and eager against graph streaming
+   proofs/s, 8 x 64 blobs, six times each in turns;
    - single-point verify: every verify_kzg_proof vector;
    - commit and prove with the default comb (comb_h = 12): the first
      commit, which builds the comb table (seconds, peak memory), every
@@ -70,6 +86,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -599,6 +616,123 @@ def same_affine(p, q) -> bool:
     return torch.equal(lhs, rhs) and not bool(L.is_zero(Z1).any())
 
 
+def graph_against_eager(kzg, batch, smi: str) -> None:
+    """The batch verification's CUDA graph against the eager program: its
+    verdict and packed masks bit for bit on the valid batch and four bad
+    ones (each also through the public API), a replay's launches against an
+    eager call's, and streaming proofs/s of both, in turns.  Its launches
+    are no path's: the counters are reset before each path."""
+    from kateth_tpu_torch import cuda_lib, host
+    from kateth_tpu_torch.kzg import KzgError, protocol
+
+    blobs, comms, proofs = (list(x) for x in batch)
+
+    def with_item(items, i, value):
+        items = list(items)
+        items[i] = value
+        return items
+
+    x = next(x for x in range(1, 100) if host.fp_sqrt((x**3 + 4) % host.P) is None)
+    cases = [
+        ("valid", (blobs, comms, proofs), True),
+        ("non-canonical blob element", (with_item(blobs, 5, b"\xff" * 32 + blobs[5][32:]), comms,
+                                        proofs), "non-canonical field element in blob"),
+        ("commitment with a bad encoding", (blobs, with_item(comms, 7, bytes(48)), proofs),
+         "BadEncoding"),
+        ("proof off the curve", (blobs, comms, with_item(proofs, 9, bytes([0x80]) + x.to_bytes(47, "big"))),
+         "NotOnCurve"),
+        ("wrong proof", (blobs, comms, with_item(proofs, 0, proofs[1])), False),
+    ]
+    for name, b, want in cases:
+        _, args = kzg._verify_batch_stage(*b)
+        pc_in, packed = protocol.verify_blob_batch_fused(*args)
+        verdict = protocol.pairing_check(*pc_in)[0]
+        _, g_verdict, g_packed = kzg._verify_batch_dispatch(*b)
+        if not (torch.equal(g_verdict, verdict) and torch.equal(g_packed, packed)):
+            raise AssertionError(f"graph: the {name} batch's verdict or masks differ from eager")
+        try:
+            got = kzg.verify_blob_kzg_proof_batch(*b)
+        except KzgError as e:
+            got = str(e)
+        if got is not want if isinstance(want, bool) else want not in str(got):
+            raise AssertionError(f"graph: the {name} batch gave {got!r}, expected {want!r}")
+    log("graph: verdict and masks equal to the eager call's on the valid batch and on a "
+        "non-canonical blob element, a commitment with a bad encoding, a proof off the curve "
+        "and a wrong proof; the public API raises or returns False for each")
+
+    _, args = kzg._verify_batch_stage(*batch)
+    torch.cuda.synchronize()
+    cuda_lib.reset_launch_counts()
+    pc_in, _ = protocol.verify_blob_batch_fused(*args)
+    protocol.pairing_check(*pc_in)
+    torch.cuda.synchronize()
+    eager = cuda_lib.launch_counts()
+    cuda_lib.reset_launch_counts()
+    kzg._verify_batch_dispatch(*batch)
+    torch.cuda.synchronize()
+    replay = cuda_lib.launch_counts()
+    if replay != eager:
+        raise AssertionError(f"graph: a replay counts {replay}, the eager call {eager}")
+    log(f"graph: a replay counts the eager call's launches: {eager['launches']}; "
+        f"mont_mul by lanes {eager['mont_mul_lanes']}")
+
+    # a second padded size: its own graph, in the same memory pool
+    big = tuple(x * 2 for x in batch)
+    if kzg.verify_blob_kzg_proof_batch(*big) is not True:
+        raise AssertionError("graph: the 128-blob batch did not verify")
+    g64, g128 = kzg._verify_graphs.graphs[64], kzg._verify_graphs.graphs[128]
+    log(f"graph: 128-blob batch captured into the 64-blob graph's pool: {g128.pool_bytes} bytes "
+        f"allocated, {g128.pool_reserved_bytes} bytes newly reserved (64 blobs: "
+        f"{g64.pool_reserved_bytes}); device memory reserved in all "
+        f"{torch.cuda.memory_reserved()} bytes [{smi}]")
+
+    # threads sharing the Kzg: each replay's inputs and outputs are its own
+    wrong = cases[-1][1]
+    results = {"valid": [], "wrong proof": []}
+
+    def worker(name, b):
+        for _ in range(4):
+            results[name].append(kzg.verify_blob_kzg_proof_batch(*b))
+
+    threads = [threading.Thread(target=worker, args=a) for a in
+               (("valid", (blobs, comms, proofs)), ("wrong proof", wrong))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if results != {"valid": [True] * 4, "wrong proof": [False] * 4}:
+        raise AssertionError(f"graph: two threads sharing the Kzg gave {results}")
+    log("graph: two threads sharing the Kzg, 4 valid and 4 wrong-proof batches, each got its "
+        "own verdicts")
+
+    n_batches = 8
+
+    def eager_stream():
+        pending = []
+        for _ in range(n_batches):
+            n, args = kzg._verify_batch_stage(*batch)
+            pc_in, packed = protocol.verify_blob_batch_fused(*args)
+            pending.append((n, protocol.pairing_check(*pc_in)[0], packed))
+        return [kzg._verify_batch_finalize(p) for p in pending]
+
+    runs = {"eager": eager_stream,
+            "graph": lambda: kzg.verify_blob_kzg_proof_batches([batch] * n_batches)}
+    rates = {k: [] for k in runs}
+    for order in (("eager", "graph"), ("graph", "eager")) * 3:
+        for mode in order:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            verdicts = runs[mode]()
+            torch.cuda.synchronize()
+            rates[mode].append(64 * n_batches / (time.perf_counter() - t0))
+            if verdicts != [True] * n_batches:
+                raise AssertionError(f"{mode} streaming verdicts {verdicts}")
+    for mode, r in rates.items():
+        log(f"graph: {mode} streaming {n_batches} x 64 blobs: median "
+            f"{statistics.median(r):.1f} proofs/s (min {min(r):.1f}, max {max(r):.1f}, "
+            f"{len(r)} runs in turns) [{smi}]")
+
+
 def main_path(dev, smi: str) -> tuple[dict, dict]:
     """Each path of the port through its public entry points at mainnet
     width; returns the launches per kernel summed over the paths, and
@@ -626,19 +760,32 @@ def main_path(dev, smi: str) -> tuple[dict, dict]:
                     lambda i: kzg.verify_blob_kzg_proof(i["blob"], i["commitment"], i["proof"]))
         case = parse_vector(os.path.join(VECTORS, "verify_blob_kzg_proof_batch", "valid_true_4",
                                          "data.yaml"))["input"]
-        batch = tuple(case[k] * 16 for k in ("blobs", "commitments", "proofs"))
+        batch = holder["batch"] = tuple(case[k] * 16 for k in ("blobs", "commitments", "proofs"))
         if kzg.verify_blob_kzg_proof_batches([batch]) != [True]:
             raise AssertionError("64-blob batch did not verify")
+        graph = kzg._verify_graphs.graphs[64]
+        log(f"graph: batch verify of 64 blobs captured; pool {graph.pool_bytes} bytes allocated, "
+            f"{graph.pool_reserved_bytes} bytes reserved; a replay launches "
+            f"{graph.launches['launches']} [{smi}]")
+        # verify_blob_kzg_proof_batches' loop: every dispatch, then every
+        # finalize; only the finalizes read back
         n_batches = 8
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        verdicts = kzg.verify_blob_kzg_proof_batches([batch] * n_batches)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            pending = [kzg._verify_batch_dispatch(*batch) for _ in range(n_batches)]
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        t_dispatch = time.perf_counter() - t0
+        verdicts = [kzg._verify_batch_finalize(p) for p in pending]
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         if verdicts != [True] * n_batches:
             raise AssertionError(f"streaming verdicts {verdicts}")
         log(f"main path: streaming {n_batches} x 64 blobs in {dt:.3f} s = "
-            f"{64 * n_batches / dt:.1f} proofs/s [{smi}]")
+            f"{64 * n_batches / dt:.1f} proofs/s, its {n_batches} dispatches in "
+            f"{t_dispatch:.3f} s with no host sync (sync debug mode \"error\") [{smi}]")
 
     def single_verify():
         kzg = holder["kzg"]
@@ -685,6 +832,7 @@ def main_path(dev, smi: str) -> tuple[dict, dict]:
         run_vectors("blob_to_kzg_commitment", lambda i: kzg.blob_to_kzg_commitment(i["blob"]))
 
     drive("batch verify", batch_verify, totals, k1_buckets)
+    graph_against_eager(holder["kzg"], holder["batch"], smi)
     drive("single-point verify", single_verify, totals, k1_buckets)
     drive("commit and prove (comb_h = 12)", commit_comb, totals, k1_buckets)
     def form_conversion():

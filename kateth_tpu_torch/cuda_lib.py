@@ -9,7 +9,10 @@ nothing falls back to the plain path.
 
 ``LAUNCHES`` counts the kernel launches: each wrapper adds one where it
 launches its kernel, so a run can show which kernels its path went through.
-``MONT_MUL_LAUNCHES`` splits K1's launches by their number of lanes.
+``MONT_MUL_LAUNCHES`` splits K1's launches by their number of lanes.  A
+launch recorded into a CUDA graph launches nothing until the graph is
+replayed: graphs.py takes a capture's counts back out with
+``launch_counts`` and ``add_launch_counts`` and adds them at every replay.
 """
 
 from __future__ import annotations
@@ -66,6 +69,20 @@ def reset_launch_counts() -> None:
     for counts in (LAUNCHES, MONT_MUL_LAUNCHES):
         for name in counts:
             counts[name] = 0
+
+
+def launch_counts() -> dict[str, dict[str, int]]:
+    """A copy of both counters."""
+    return {"launches": dict(LAUNCHES), "mont_mul_lanes": dict(MONT_MUL_LAUNCHES)}
+
+
+def add_launch_counts(counts: dict[str, dict[str, int]], times: int = 1) -> None:
+    """Add `times` times counts (a launch_counts() difference) to both
+    counters."""
+    for name, v in counts["launches"].items():
+        LAUNCHES[name] += times * v
+    for name, v in counts["mont_mul_lanes"].items():
+        MONT_MUL_LAUNCHES[name] += times * v
 
 
 def count_mont_mul_lanes(lanes: int) -> None:

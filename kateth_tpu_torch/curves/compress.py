@@ -20,13 +20,20 @@ from ..fields import fp2
 from ..fields import limbs as L
 from ..fields.specs import FP
 
-#: a > (p - 1)/2 iff a >= (p + 1)/2
-_HALF_P1 = L.int_to_digits((FP.modulus + 1) // 2, FP.n_digits)
+#: a > (p - 1)/2 iff a >= (p + 1)/2, made once per device
+_HALF_P1 = L.DeviceConstants(lambda _: L.int_to_digits((FP.modulus + 1) // 2, FP.n_digits))
 
 
-def _gt_half(a: torch.Tensor) -> torch.Tensor:
+def gt_half(a: torch.Tensor) -> torch.Tensor:
     """a > (p - 1)/2 for plain canonical digit planes (..., 24)."""
-    return L._geq(a, torch.as_tensor(_HALF_P1, device=a.device))
+    return L._geq(a, _HALF_P1.get(None, a.device))
+
+
+def fp2_is_larger(y: torch.Tensor) -> torch.Tensor:
+    """y > -y lexicographically on plain Fp2 planes (..., 2, 24): the c1
+    component decides, c0 when c1 is zero."""
+    c0, c1 = y[..., 0, :], y[..., 1, :]
+    return gt_half(c1) | (L.is_zero(c1) & gt_half(c0))
 
 
 def _with_flags(xb: torch.Tensor, inf: torch.Tensor, larger: torch.Tensor) -> torch.Tensor:
@@ -43,7 +50,7 @@ def g1_compress_planes(p) -> torch.Tensor:
     zinv = L.inv(FP, Z)  # 0 for the identity (0^(p-2) = 0)
     x = L.from_mont(FP, L.mont_mul(FP, X, zinv))
     y = L.from_mont(FP, L.mont_mul(FP, Y, zinv))
-    return _with_flags(L.digits_to_be_bytes(FP, x), L.is_zero(Z), _gt_half(y))
+    return _with_flags(L.digits_to_be_bytes(FP, x), L.is_zero(Z), gt_half(y))
 
 
 def points_to_bytes(pt) -> list[bytes]:
@@ -59,9 +66,8 @@ def g2_compress_planes(p) -> torch.Tensor:
     zinv = fp2.inv(Z)  # 0 for the identity
     x = L.from_mont(FP, fp2.mul(X, zinv))
     y = L.from_mont(FP, fp2.mul(Y, zinv))
-    larger = _gt_half(y[..., 1, :]) | (L.is_zero(y[..., 1, :]) & _gt_half(y[..., 0, :]))
     xb = torch.cat([L.digits_to_be_bytes(FP, x[..., 1, :]), L.digits_to_be_bytes(FP, x[..., 0, :])], -1)
-    return _with_flags(xb, fp2.is_zero(Z), larger)
+    return _with_flags(xb, fp2.is_zero(Z), fp2_is_larger(y))
 
 
 def g2_points_to_bytes(pt) -> list[bytes]:

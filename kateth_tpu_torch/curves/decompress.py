@@ -28,14 +28,12 @@ from .. import cuda_pairing
 from ..fields import cuda_mont, fp2
 from ..fields import limbs as L
 from ..fields.specs import FP, FR
-from . import ops
+from . import compress, ops
 
 F1 = ops.FP_FIELD
 F2 = ops.FP2_FIELD
 
 _SQRT_EXP = (FP.modulus + 1) // 4
-#: y is "lexicographically larger" iff y >= (p+1)/2
-_HALF_P1 = L.int_to_digits((FP.modulus + 1) // 2, FP.n_digits)
 _FOUR_MONT = FP.from_int(4)  # the curve's b, Montgomery form
 _R_DIGITS = L.int_to_digits(FR.modulus, FR.n_digits)
 
@@ -59,12 +57,12 @@ def g1_decompress_nosub(comp_bytes: torch.Tensor):
 
     x = L.to_mont(FP, x_plain)
     x3 = L.mont_mul(FP, L.mont_sqr(FP, x), x)
-    t = L.add(FP, x3, torch.as_tensor(_FOUR_MONT, device=dev).expand_as(x3))
+    t = L.add(FP, x3, _CONSTANTS.get("four_mont", dev).expand_as(x3))
     y = L.pow_const(FP, t, _SQRT_EXP)
     ok_curve = L.eq(L.mont_sqr(FP, y), t) | is_inf
 
     # the sign flag picks the larger or the smaller root
-    y_large = L._geq(L.from_mont(FP, y), torch.as_tensor(_HALF_P1, device=dev))
+    y_large = compress.gt_half(L.from_mont(FP, y))
     y_sel = torch.where((y_large != (s_flag == 1))[..., None], L.neg(FP, y), y)
 
     batch = flags.shape
@@ -77,10 +75,16 @@ def g1_decompress_nosub(comp_bytes: torch.Tensor):
     return point, ok_encoding, ok_curve
 
 
+def group_order(device) -> torch.Tensor:
+    """r as plain Fr digits (16,) on `device`: the scalar of the subgroup
+    checks."""
+    return _CONSTANTS.get("r", device)
+
+
 def subgroup_check(point) -> torch.Tensor:
     """r P == identity (identity lanes pass trivially)."""
     batch = point[0].shape[:-1]
-    r = torch.as_tensor(_R_DIGITS, device=point[0].device).expand(*batch, FR.n_digits)
+    r = group_order(point[0].device).expand(*batch, FR.n_digits)
     return ops.is_identity(F1, cuda_mont.g1_scalar_mul(point, r))
 
 
@@ -99,6 +103,11 @@ def g1_decompress(comp_bytes: torch.Tensor):
 _B2_MONT = fp2.from_ints(4, 4)
 #: -1 in Fp (Montgomery): the alpha == -1 test of the Fp2 square root
 _NEG_ONE_MONT = FP.from_int(FP.modulus - 1)
+
+#: the constants above, made once per device
+_CONSTANTS = L.DeviceConstants({
+    "four_mont": _FOUR_MONT, "r": _R_DIGITS, "b2_mont": _B2_MONT,
+    "neg_one_mont": _NEG_ONE_MONT}.__getitem__)
 
 
 def _fp2_pow_const(a: torch.Tensor, e: int) -> torch.Tensor:
@@ -127,19 +136,11 @@ def _fp2_sqrt(a: torch.Tensor) -> torch.Tensor:
     x0 = fp2.mul(a1, a)
     alpha = fp2.mul(a1, x0)
     ux0 = torch.stack([L.neg(FP, x0[..., 1, :]), x0[..., 0, :]], dim=-2)  # u x0
-    is_neg_one = L.eq(alpha[..., 0, :], torch.as_tensor(_NEG_ONE_MONT, device=a.device)) & (
+    is_neg_one = L.eq(alpha[..., 0, :], _CONSTANTS.get("neg_one_mont", a.device)) & (
         L.is_zero(alpha[..., 1, :])
     )
     b = _fp2_pow_const(fp2.add(fp2.one(alpha.shape[:-2], a.device), alpha), (FP.modulus - 1) // 2)
     return torch.where(is_neg_one[..., None, None], ux0, fp2.mul(b, x0))
-
-
-def _fp2_is_larger(y_plain: torch.Tensor) -> torch.Tensor:
-    """y > -y lexicographically on PLAIN Fp2 planes (..., 2, D): the c1
-    component decides, c0 when c1 is zero."""
-    half = torch.as_tensor(_HALF_P1, device=y_plain.device)
-    c0, c1 = y_plain[..., 0, :], y_plain[..., 1, :]
-    return torch.where(L.is_zero(c1), L._geq(c0, half), L._geq(c1, half))
 
 
 def g2_decompress_nosub(comp_bytes: torch.Tensor):
@@ -161,12 +162,12 @@ def g2_decompress_nosub(comp_bytes: torch.Tensor):
     ok_encoding = (c_flag == 1) & torch.where(is_inf, inf_ok, canonical)
 
     x = L.to_mont(FP, torch.stack([x0_plain, x1_plain], dim=-2))
-    t = fp2.add(fp2.mul(fp2.sqr(x), x), torch.as_tensor(_B2_MONT, device=dev))
+    t = fp2.add(fp2.mul(fp2.sqr(x), x), _CONSTANTS.get("b2_mont", dev))
     y = _fp2_sqrt(t)
     ok_curve = L.eq(fp2.sqr(y), t).all(-1) | is_inf
 
     # the sign flag picks the larger or the smaller root
-    flip = _fp2_is_larger(L.from_mont(FP, y)) != (s_flag == 1)
+    flip = compress.fp2_is_larger(L.from_mont(FP, y)) != (s_flag == 1)
     y_sel = torch.where(flip[..., None, None], fp2.neg(y), y)
 
     batch = flags.shape
@@ -182,7 +183,7 @@ def g2_decompress_nosub(comp_bytes: torch.Tensor):
 def g2_subgroup_check(point) -> torch.Tensor:
     """r P == identity over G2, one G2 ladder (K6) launch for the batch."""
     batch = point[0].shape[:-2]
-    r = torch.as_tensor(_R_DIGITS, device=point[0].device).expand(*batch, FR.n_digits)
+    r = group_order(point[0].device).expand(*batch, FR.n_digits)
     return ops.is_identity(F2, cuda_pairing.g2_scalar_mul(point, r))
 
 

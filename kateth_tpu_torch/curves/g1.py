@@ -4,8 +4,10 @@ converter from host Jacobian int triples (kateth_tpu_torch.host)."""
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from .. import host
+from ..fields import limbs as L
 from ..fields.specs import FP
 from . import ops
 
@@ -27,3 +29,9 @@ def from_ints(points) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
 
 #: the generator as projective digit planes (24,) each
 GENERATOR = tuple(c[0] for c in from_ints([host.G1_GEN]))
+_GENERATOR = L.DeviceConstants(lambda i: GENERATOR[i])
+
+
+def generator(device) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """GENERATOR on `device`, made once per device."""
+    return tuple(_GENERATOR.get(i, device) for i in range(3))

@@ -97,6 +97,10 @@ def select(mask, a, b):
 
 #: gamma_i = xi^(i (p-1)/6), i = 1..5, as (5, 2, D) Montgomery digit planes
 GAMMA = np.stack([fp2.from_ints(*g) for g in host.GAMMA1])
+#: frob's twist of the six Fp2 coordinates: (1, gamma_2, gamma_4, gamma_1,
+#: gamma_3, gamma_5), made once per device
+_FROB_TWIST = L.DeviceConstants(
+    lambda _: np.stack([fp2.from_ints(1, 0), GAMMA[1], GAMMA[3], GAMMA[0], GAMMA[2], GAMMA[4]]))
 
 
 def frob(a):
@@ -104,11 +108,7 @@ def frob(a):
     (c0.1, c0.2, c1.0, c1.1, c1.2) by gamma (2, 4, 1, 3, 5)."""
     c = torch.cat([a[..., 0:1, :], L.neg(FP, a[..., 1:2, :])], dim=-2)
     flat = c.reshape(*c.shape[:-4], 6, 2, c.shape[-1])
-    onem = fp2.from_ints(1, 0)
-    gt = torch.as_tensor(
-        np.stack([onem, GAMMA[1], GAMMA[3], GAMMA[0], GAMMA[2], GAMMA[4]])
-    ).to(a.device)
-    return fp2.mul(flat, gt).reshape(a.shape)
+    return fp2.mul(flat, _FROB_TWIST.get(None, a.device)).reshape(a.shape)
 
 
 # --- cyclotomic subgroup ops -------------------------------------------------

@@ -8,7 +8,12 @@ bit-identical Montgomery values after packing digit pairs into limbs.
 
 Every function returns canonical digits (each < 2^16, value < N), so any
 grouping of the exact modular operations gives the same bits.  Carries are
-resolved by repeated non-propagating rounds until no digit overflows; the
+resolved with no data-dependent control flow, as the JAX package's
+soft_carry and carry_pass do: each caller states a static bound on its
+columns, which fixes a number of non-propagating rounds, and one
+carry-lookahead step over the digits resolves the 0/1 carries left.  No
+function reads a tensor back to the host, so a device runs the arithmetic
+without waiting for the host and a CUDA graph can capture it.  The
 subtraction keeps the complement trick (a + (2^16-1-b) + 1 per digit), so
 no intermediate is ever negative.
 
@@ -21,6 +26,7 @@ from __future__ import annotations
 
 import functools
 from dataclasses import dataclass, field
+from typing import Callable, Hashable
 
 import numpy as np
 import torch
@@ -55,6 +61,28 @@ def _toeplitz(c: int, n_in: int, n_out: int) -> np.ndarray:
     return t
 
 
+class DeviceConstants:
+    """Host arrays made into tensors once per device and kept, so that the
+    arithmetic on a device uploads nothing (callers never write to them).
+    `make(key)` builds the numpy array of a hashable key."""
+
+    def __init__(self, make: Callable[[Hashable], np.ndarray]):
+        self._make = make
+        self._tensors: dict = {}
+
+    def get(self, key: Hashable, device) -> torch.Tensor:
+        k = (key, str(device))
+        t = self._tensors.get(k)
+        if t is None:
+            t = torch.as_tensor(np.array(self._make(key))).to(device)  # a copy: its own memory
+            self._tensors[k] = t
+        return t
+
+
+#: 2^0, ..., 2^(n-1) as int64, keyed by n
+_POW2 = DeviceConstants(lambda n: np.left_shift(1, np.arange(n, dtype=np.int64)))
+
+
 @dataclass(frozen=True, eq=False)
 class FieldSpec:
     """Static description of a prime field in digit-plane representation."""
@@ -66,7 +94,7 @@ class FieldSpec:
     one_mont: np.ndarray = field(init=False, repr=False)
     r2_digits: np.ndarray = field(init=False, repr=False)
     nprime_digits: np.ndarray = field(init=False, repr=False)
-    _tensors: dict = field(init=False, repr=False, default_factory=dict)
+    _tensors: DeviceConstants = field(init=False, repr=False)
 
     def __post_init__(self):
         N, D = self.modulus, self.n_digits
@@ -78,6 +106,7 @@ class FieldSpec:
         object.__setattr__(self, "r2_digits", int_to_digits(R * R % N, D))
         # N' = -N^-1 mod R for the non-interleaved Montgomery reduction
         object.__setattr__(self, "nprime_digits", int_to_digits((-pow(N, -1, R)) % R, D))
+        object.__setattr__(self, "_tensors", DeviceConstants(self._constant))
 
     def from_int(self, v: int, mont: bool = True) -> np.ndarray:
         v %= self.modulus
@@ -94,48 +123,116 @@ class FieldSpec:
     def tensor(self, name: str, device) -> torch.Tensor:
         """The named constant as a tensor on `device`, made once per device
         (constants only: callers never write to it)."""
-        key = (name, str(device))
-        t = self._tensors.get(key)
-        if t is None:
-            D, N = self.n_digits, self.modulus
-            if name == "nprime_toeplitz":  # low half of x * N'
-                arr = _toeplitz(int(digits_to_int(self.nprime_digits)), D, D)
-            elif name == "mod_toeplitz":  # full x * N
-                arr = _toeplitz(N, D, 2 * D)
-            elif name == "mod_shifts":  # N << j in D+1 digits, j < 7
-                arr = np.stack([int_to_digits(N << j, D + 1) for j in range(7)])
-            elif name == "r_minus_mod":  # R - N: x + (R - N) carries out iff x >= N
-                arr = int_to_digits((1 << (DIGIT_BITS * D)) - N, D)
-            elif name == "conv_scatter":  # (D^2, 2D): digit product (i, j) -> column i + j
-                arr = np.zeros((D * D, 2 * D), dtype=np.float64)
-                for i in range(D):
-                    arr[i * D : (i + 1) * D, i : i + D] = np.eye(D)
-            else:
-                arr = getattr(self, name)
-            t = torch.as_tensor(np.ascontiguousarray(arr)).to(device)
-            self._tensors[key] = t
-        return t
+        return self._tensors.get(name, device)
+
+    def _constant(self, name: str) -> np.ndarray:
+        D, N = self.n_digits, self.modulus
+        if name == "nprime_toeplitz":  # low half of x * N'
+            return _toeplitz(int(digits_to_int(self.nprime_digits)), D, D)
+        if name == "mod_toeplitz":  # full x * N
+            return _toeplitz(N, D, 2 * D)
+        one = np.eye(1, D, dtype=np.int64)[0]
+        if name == "neg_base":  # neg's N + R - a: N_i + 2^16 - 1 - a_i, plus 1 at digit 0
+            if self.mod_digits[0] >= DIGIT_MASK:  # digit 0 would exceed 2 (2^16 - 1)
+                raise ValueError("neg needs N's digit 0 below 2^16 - 1")
+            return self.mod_digits + DIGIT_MASK + one
+        if name == "neg_mod_shifts":  # 2^(16 (D+1)) - (N << j) in D+1 digits, j < 7
+            return np.stack([int_to_digits((1 << (DIGIT_BITS * (D + 1))) - (N << j), D + 1)
+                             for j in range(7)])
+        if name == "r_minus_mod":  # R - N: x + (R - N) carries out iff x >= N
+            return int_to_digits((1 << (DIGIT_BITS * D)) - N, D)
+        if name == "add_rows":  # add's two rows: a + b, a + b + (R - N)
+            return np.stack([np.zeros(D, dtype=np.int64), self._constant("r_minus_mod")])
+        if name == "sub_rows":  # sub's: a - b + R (2^16 - 1 a digit, plus 1), and + N
+            return DIGIT_MASK + one + np.stack([np.zeros(D, dtype=np.int64), self.mod_digits])
+        if name == "conv_scatter":  # (D^2, 2D): digit product (i, j) -> column i + j
+            arr = np.zeros((D * D, 2 * D), dtype=np.float64)
+            for i in range(D):
+                arr[i * D : (i + 1) * D, i : i + D] = np.eye(D)
+            return arr
+        return getattr(self, name)
 
 
 # ---------------------------------------------------------------------------
 # carry and borrow machinery
 # ---------------------------------------------------------------------------
 
-def _norm(t: torch.Tensor):
-    """Carry-propagate non-negative columns into canonical 16-bit digits.
+#: the largest column the carry-lookahead step takes: a digit below
+#: 2^17 - 1 plus an incoming carry of 1 passes on a carry of at most 1
+LOOKAHEAD_MAX = (1 << (DIGIT_BITS + 1)) - 2
 
-    Each round moves every column's overflow one column up; rounds repeat
-    until no column overflows.  Returns (digits, carry out of the top)."""
-    carry_out = None
-    while True:
+
+def carry_rounds(col_max: int) -> int:
+    """The soft rounds that take columns of at most col_max to at most
+    LOOKAHEAD_MAX: a round leaves at most 2^16 - 1 + (col_max >> 16) in a
+    column."""
+    rounds = 0
+    while col_max > LOOKAHEAD_MAX:
+        col_max = DIGIT_MASK + (col_max >> DIGIT_BITS)
+        rounds += 1
+    return rounds
+
+
+#: the lookahead's thresholds: a column of 2^16 - 1 or more generates or
+#: passes on a carry (x), one of 2^16 or more generates one (y)
+_XY_MIN = DeviceConstants(lambda _: np.array([[DIGIT_MASK], [1 << DIGIT_BITS]], dtype=np.int64))
+#: the lookahead's weights for W columns, (2, 2, W): column i adds
+#: (x_i + y_i) 2^i to P = X + Y and (x_i - y_i) 2^i to Q = X - Y
+_PQ_WEIGHTS = DeviceConstants(
+    lambda W: np.array([[1, 1], [1, -1]], dtype=np.int64)[:, :, None] << np.arange(W))
+
+
+def _soft_rounds(t: torch.Tensor, col_max: int):
+    """carry_rounds(col_max) rounds over non-negative columns, each at most
+    col_max: each moves every column's overflow one column up.  Returns
+    (columns, each at most LOOKAHEAD_MAX; what left the top column in each
+    round, a list of (...,) views)."""
+    tops = []
+    for _ in range(carry_rounds(col_max)):
         c = t >> DIGIT_BITS
-        if not bool(c.any()):
-            if carry_out is None:
-                carry_out = torch.zeros(t.shape[:-1], dtype=t.dtype, device=t.device)
-            return t, carry_out
         t = t & DIGIT_MASK
         t[..., 1:] += c[..., :-1]
-        carry_out = c[..., -1] if carry_out is None else carry_out + c[..., -1]
+        tops.append(c[..., -1])
+    return t, tops
+
+
+def _lookahead(t: torch.Tensor, carry_in=0):
+    """Columns each at most LOOKAHEAD_MAX, plus a carry_in (0 or 1, an int
+    or a (...,) tensor) into column 0 -> (canonical digits, carry out of the
+    top: bool (...,)).
+
+    Every carry is 0 or 1: a column of 2^16 or more generates one, a column
+    of 2^16 - 1 passes one on.  With x_i = (column i generates or passes
+    on) and y_i = (column i generates) packed into X and Y (W + 1 <= 49
+    bits), the binary sum X + Y + carry_in holds in (X + Y + carry_in) ^ X
+    ^ Y the carry into every digit at once, and in bit W the carry out;
+    X ^ Y = X - Y, as y_i implies x_i."""
+    W = t.shape[-1]
+    xy = t[..., None, :] >= _XY_MIN.get(None, t.device)
+    pq = (xy[..., None, :, :] * _PQ_WEIGHTS.get(W, t.device)).sum((-2, -1))
+    c = pq[..., 0] if isinstance(carry_in, int) and not carry_in else pq[..., 0] + carry_in
+    carries = ((c ^ pq[..., 1])[..., None] & _POW2.get(W + 1, t.device)) != 0
+    digits = t + carries[..., :W]
+    digits &= DIGIT_MASK
+    return digits, carries[..., W]
+
+
+def _carry(t: torch.Tensor, col_max: int, carry_in=0):
+    """Carry-propagate non-negative columns, each at most col_max, plus a
+    carry_in into column 0 -> (canonical digits, carry out of the top: a
+    bool, whether the value reaches 2^(16 W)).  A column above col_max is
+    outside the contract: its digits come out wrong."""
+    t, tops = _soft_rounds(t, col_max)
+    digits, out = _lookahead(t, carry_in)
+    for top in tops:
+        out = torch.logical_or(out, top)
+    return digits, out
+
+
+def _normalize(t: torch.Tensor, col_max: int, carry_in=0) -> torch.Tensor:
+    """_carry's digits, the value mod 2^(16 W): what leaves the top column
+    is dropped, at no cost."""
+    return _lookahead(_soft_rounds(t, col_max)[0], carry_in)[0]
 
 
 def _geq(a: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
@@ -143,24 +240,18 @@ def _geq(a: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
 
     The most significant differing digit decides: the weighted sum of the
     per-digit signs with weights 2^i has that digit's sign."""
-    D = a.shape[-1]
-    w = torch.ones((), dtype=torch.int64, device=a.device) << torch.arange(D, device=a.device)
-    s = ((a > n).long() - (a < n).long()) * w
-    return s.sum(-1) >= 0
-
-
-def _sub_digits(a: torch.Tensor, b: torch.Tensor):
-    """(a - b) mod 2^(16 D) with its borrow, as a + (2^16-1-b) + 1."""
-    s = a + (DIGIT_MASK - b)
-    s[..., 0] += 1
-    diff, carry = _norm(s)
-    return diff, 1 - carry
+    return (torch.sign(a - n) * _POW2.get(a.shape[-1], a.device)).sum(-1) >= 0
 
 
 def cond_sub_mod(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
     """If a >= N subtract N (a < 2N, canonical digits)."""
-    d, carry = _norm(a + spec.tensor("r_minus_mod", a.device))
-    return torch.where((carry == 1)[..., None], d, a)
+    d, carry = _carry(a + spec.tensor("r_minus_mod", a.device), 2 * DIGIT_MASK)
+    return torch.where(carry[..., None], d, a)
+
+
+def _rows(spec: FieldSpec, name: str, x: torch.Tensor) -> torch.Tensor:
+    """The (2, D) constant `name`, shaped to add to x[None] as two rows."""
+    return spec.tensor(name, x.device).view(2, *(1,) * (x.dim() - 1), spec.n_digits)
 
 
 # ---------------------------------------------------------------------------
@@ -171,22 +262,22 @@ def add(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(a + b) mod N.  a + b and a + b + (R - N) are carried together; the
     second carries out of the top digit iff a + b >= N."""
     s = a + b
-    both, carry = _norm(torch.stack([s, s + spec.tensor("r_minus_mod", s.device)]))
-    return torch.where((carry[1] == 1)[..., None], both[1], both[0])
+    both, carry = _carry(s[None] + _rows(spec, "add_rows", s), 3 * DIGIT_MASK)
+    return torch.where(carry[1][..., None], both[1], both[0])
 
 
 def sub(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """(a - b) mod N.  a - b + R (the complement trick) and a - b + N + R
-    are carried together; the first carries out iff a >= b."""
-    s = a + (DIGIT_MASK - b)
-    s[..., 0] += 1
-    both, carry = _norm(torch.stack([s, s + spec.tensor("mod_digits", s.device)]))
-    return torch.where((carry[0] == 1)[..., None], both[0], both[1])
+    """(a - b) mod N.  a - b + R (the complement trick: a_i + 2^16 - 1 - b_i
+    by digit, plus 1 at digit 0) and a - b + N + R are carried together;
+    the first carries out iff a >= b."""
+    s = a - b
+    both, carry = _carry(s[None] + _rows(spec, "sub_rows", s), 3 * DIGIT_MASK + 1)
+    return torch.where(carry[0][..., None], both[0], both[1])
 
 
 def neg(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
-    """(-a) mod N, with -0 = 0."""
-    diff, _ = _sub_digits(spec.tensor("mod_digits", a.device), a)
+    """(-a) mod N, with -0 = 0: N + R - a, mod R."""
+    diff = _normalize(spec.tensor("neg_base", a.device) - a, 2 * DIGIT_MASK)
     return torch.where(is_zero(a)[..., None], a, diff)
 
 
@@ -219,21 +310,31 @@ def _mul_const(x: torch.Tensor, toeplitz: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x.to(torch.float64), toeplitz).to(torch.int64)
 
 
-def mont_reduce(spec: FieldSpec, t: torch.Tensor) -> torch.Tensor:
-    """Montgomery reduction of (..., 2D) columns with value < N R:
-    M = (t mod R) N' mod R, then (t + M N) / R, then one conditional
-    subtraction.
+def conv_max(spec: FieldSpec) -> int:
+    """The largest column of a digit convolution of two D-digit operands
+    (_conv_digits, _mul_const): D products of 16-bit digits, below 2^37."""
+    return spec.n_digits * DIGIT_MASK**2
+
+
+def mont_reduce(spec: FieldSpec, t: torch.Tensor, col_max: int | None = None) -> torch.Tensor:
+    """Montgomery reduction of (..., 2D) columns, each at most col_max
+    (default conv_max(spec)), with value < N R: M = (t mod R) N' mod R,
+    then (t + M N) / R, then one conditional subtraction.
 
     The low halves of t and M N sum to 0 or R (their sum is a multiple of
     R below 2R), so the high half is t_hi + (MN)_hi plus that one carry,
     found without rippling a carry through D zero digits."""
     D = spec.n_digits
-    t, _ = _norm(t)
-    m, _ = _norm(_mul_const(t[..., :D], spec.tensor("nprime_toeplitz", t.device)))
-    u, _ = _norm(_mul_const(m, spec.tensor("mod_toeplitz", t.device)))
-    hi = t[..., D:] + u[..., D:]
-    hi[..., 0] += (~(is_zero(t[..., :D]) & is_zero(u[..., :D]))).long()
-    res, _ = _norm(hi)  # (t + M N) / R < 2N < R: no carry out
+    cmax = conv_max(spec)
+    if col_max is None:
+        col_max = cmax
+    if col_max > DIGIT_MASK:
+        t = _normalize(t, col_max)
+    m = _normalize(_mul_const(t[..., :D], spec.tensor("nprime_toeplitz", t.device)), cmax)
+    u = _normalize(_mul_const(m, spec.tensor("mod_toeplitz", t.device)), cmax)
+    low_carry = (t[..., :D] | u[..., :D]).any(-1)
+    # (t + M N) / R < 2N < R: no carry out
+    res = _normalize(t[..., D:] + u[..., D:], 2 * DIGIT_MASK, carry_in=low_carry)
     return cond_sub_mod(spec, res)
 
 
@@ -262,29 +363,35 @@ def to_mont(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
 
 def from_mont(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
     """Montgomery -> standard form (reduction with a zero high half)."""
-    return mont_reduce(spec, F.pad(a, (0, spec.n_digits)))
+    return mont_reduce(spec, F.pad(a, (0, spec.n_digits)), col_max=DIGIT_MASK)
+
+
+#: mul_small's arrays of small constants, keyed by (shape, bytes)
+_SMALL_KS = DeviceConstants(lambda key: np.frombuffer(key[1], dtype=np.int64).reshape(key[0]))
 
 
 def mul_small(spec: FieldSpec, a: torch.Tensor, k) -> torch.Tensor:
     """a * k for small constant(s) 0 < k < 128; stays in Montgomery form.
 
-    k is an int or an integer array broadcastable against a's batch dims.
-    The product is formed in D+1 digits (k N can exceed R), then reduced by
-    conditionally subtracting N 2^j for j from high to low."""
+    k is an int or an integer array broadcastable against a's batch dims
+    (on the device once per array's value and shape).  The product is
+    formed in D+1 digits (k N can exceed R), then reduced by conditionally
+    subtracting N 2^j for j from high to low."""
     if isinstance(k, int):
         kmax = k
         kt = k
     else:
         karr = np.asarray(k, dtype=np.int64)
         kmax = int(karr.max())
-        kt = torch.as_tensor(karr).to(a.device)[..., None]
+        kt = _SMALL_KS.get((karr.shape, karr.tobytes()), a.device)[..., None]
     if not 0 < kmax < 128:
         raise ValueError("mul_small takes 0 < k < 128")
-    t, _ = _norm(F.pad(a, (0, 1)) * kt)
-    shifts = spec.tensor("mod_shifts", a.device)
+    t = _normalize(F.pad(a, (0, 1)) * kt, DIGIT_MASK * kmax)
+    negs = spec.tensor("neg_mod_shifts", a.device)
     for j in range(kmax.bit_length() - 1, -1, -1):
-        diff, borrow = _sub_digits(t, shifts[j])
-        t = torch.where((borrow == 0)[..., None], diff, t)
+        # t + 2^(16 (D+1)) - (N << j) carries out iff t >= N << j
+        diff, ge = _carry(t + negs[j], 2 * DIGIT_MASK)
+        t = torch.where(ge[..., None], diff, t)
     return t[..., : spec.n_digits]
 
 

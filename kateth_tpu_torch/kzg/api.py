@@ -8,7 +8,14 @@ honest verification failure.  The host prefix (length checks, SHA-256
 Fiat-Shamir challenges, the batch challenge r and its weights) runs in
 Python; the rest runs on the setup's device.  Every batched operation pads
 its batch to a multiple of config.canon_batch (zero blobs, generator
-points), so the device sees a fixed set of shapes.
+points), so the device sees a fixed set of shapes.  Host data reaches a
+CUDA device by asynchronous copies from pinned memory.
+
+On a CUDA device the batch verification runs as one CUDA graph per padded
+batch size (graphs.py), captured at the first batch of that size; the
+dispatch of a batch never waits for the device, so streaming overlaps a
+batch's host prefix with the device work of the batches before it.  CPU
+tensors run the same program eagerly.
 """
 
 from __future__ import annotations
@@ -18,7 +25,7 @@ import hashlib
 import numpy as np
 import torch
 
-from .. import host, ntt
+from .. import graphs, host, ntt
 from ..curves import compress, comb, decompress
 from ..fields.specs import FR
 from ..host import KzgError
@@ -47,6 +54,10 @@ class Kzg:
         #: the fixed-base comb table, built at the first commit (6.4 GB on
         #: the card at mainnet), never for a caller who only verifies
         self._comb_table = None
+        #: the batch verification's CUDA graphs of this setup (None on the
+        #: CPU, which runs the program eagerly)
+        self._verify_graphs = (graphs.VerifyBatchGraphs(setup.roots, setup.tau2)
+                               if self.device.type == "cuda" else None)
 
     @classmethod
     def load_json(
@@ -89,8 +100,8 @@ class Kzg:
     # -- host codecs ----------------------------------------------------------
 
     def _to_device(self, data: bytes, width: int) -> torch.Tensor:
-        arr = np.frombuffer(data, dtype=np.uint8).reshape(-1, width)
-        return torch.as_tensor(arr.copy()).to(self.device)
+        return protocol.to_device([np.frombuffer(data, dtype=np.uint8).reshape(-1, width)],
+                                  self.device)[0]
 
     def _decode_blobs(self, blobs, pad_to: int | None = None):
         """list[bytes] -> (plain element planes (B, N, 16), ok (B,)) on the
@@ -330,26 +341,34 @@ class Kzg:
         joined_comms = b"".join(bytes(c) for c in commitments)
         joined_proofs = b"".join(bytes(p) for p in proofs)
 
-        blob_arr = self._to_device(joined_blobs + b"\x00" * (nbytes * pad), nbytes)
-        comm_arr = self._to_device(joined_comms + _G1_GEN_BYTES * pad, BYTES_PER_COMMITMENT)
-        proof_arr = self._to_device(joined_proofs + _G1_GEN_BYTES * pad, BYTES_PER_PROOF)
-
         z_digests = self._challenge_digests(joined_blobs, joined_comms, n)
         z_vals = [int.from_bytes(d, "big") % host.R for d in z_digests] + [0] * pad
         r = self._rlc_challenge(z_digests, joined_comms, joined_proofs, n)
         weights = [pow(r, i, host.R) for i in range(n)] + [0] * pad
         zw = [w * z % host.R for w, z in zip(weights, z_vals)]
-        planes = [protocol.fr_planes(v, self.device) for v in (z_vals, zw, weights)]
-        return n, (blob_arr, comm_arr, proof_arr, *planes, self.setup.roots, self.setup.tau2)
+
+        def rows(data: bytes, width: int) -> np.ndarray:
+            return np.frombuffer(data, dtype=np.uint8).reshape(nc, width)
+
+        staged = protocol.to_device([
+            rows(joined_blobs + b"\x00" * (nbytes * pad), nbytes),
+            rows(joined_comms + _G1_GEN_BYTES * pad, BYTES_PER_COMMITMENT),
+            rows(joined_proofs + _G1_GEN_BYTES * pad, BYTES_PER_PROOF),
+            *(protocol.fr_planes_host(v) for v in (z_vals, zw, weights)),
+        ], self.device)
+        return n, (*staged, self.setup.roots, self.setup.tau2)
 
     def _verify_batch_dispatch(self, blobs, commitments, proofs):
         """Host prefix and device work; returns (n, verdict, packed masks)
-        with the device results not yet read back."""
+        with the device results not yet read back.  On CUDA the device work
+        is a replay of this padded batch size's graph, captured at its first
+        batch; nothing here waits for the device."""
         n, args = self._verify_batch_stage(blobs, commitments, proofs)
         if n == 0:
             return 0, None, None
-        pc_in, packed = protocol.verify_blob_batch_fused(*args)
-        return n, protocol.pairing_check(*pc_in)[0], packed
+        if self._verify_graphs is None:
+            return n, *protocol.verify_blob_batch(*args)
+        return n, *self._verify_graphs(args[:6])
 
     def _verify_batch_finalize(self, pending) -> bool:
         n, verdict, packed = pending

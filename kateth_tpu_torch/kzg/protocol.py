@@ -11,8 +11,13 @@
                              G1 ladder carrying the random-linear-combination
                              lincombs and the subgroup checks
 * pairing_check           -- e(a1, a2) == e(b1, [1]_2)
+* verify_blob_batch       -- the two above: a batch's verdict and masks, the
+                             program that graphs.py captures
+* to_device, fr_planes    -- host arrays to the device in one asynchronous
+                             copy
 
-Special cases are masks, not control flow.
+Special cases are masks, not control flow, and nothing here reads a tensor
+back to the host or uploads a constant more than once per device.
 """
 
 from __future__ import annotations
@@ -31,7 +36,10 @@ from .. import cuda_pairing, host, pairing
 
 F1 = ops.FP_FIELD
 F2 = ops.FP2_FIELD
-_R_DIGITS = L.int_to_digits(FR.modulus, FR.n_digits)
+
+
+#: N^-1 mod r in Montgomery form, keyed by N, made once per device
+_N_INV = L.DeviceConstants(lambda n: FR.from_int(pow(n, host.R - 2, host.R)))
 
 
 def decode_blobs(blob_bytes: torch.Tensor):
@@ -67,8 +75,7 @@ def evaluate(elements_mont: torch.Tensor, z_mont: torch.Tensor, roots: torch.Ten
     fw = L.mont_mul(FR, elements_mont, roots.expand_as(elements_mont))
     terms = L.mont_mul(FR, L.mont_mul(FR, fw, prefix_shift), suffix_shift)
     s = L.sum_mod(FR, terms, axis=-2)
-    ninv = torch.as_tensor(FR.from_int(pow(n, host.R - 2, host.R)), device=s.device)
-    y = L.mont_mul(FR, s, ninv.expand_as(s))
+    y = L.mont_mul(FR, s, _N_INV.get(n, s.device).expand_as(s))
     return torch.where(any_hit[..., None], y_hit, y)
 
 
@@ -103,9 +110,8 @@ def commit_msm(g1_points, scalars_plain, window: int = 8):
 
 def pairing_check(a1, a2, b1):
     """e(a1, a2) == e(b1, [1]_2) per leading index of the points."""
-    dev = a1[0].device
     B = a1[0].shape[0]
-    g2gen = tuple(torch.as_tensor(g, device=dev).expand(B, *g.shape) for g in g2mod.GENERATOR)
+    g2gen = tuple(g.expand(B, *g.shape) for g in g2mod.generator(a1[0].device))
     return pairing.verify_pairings((a1, a2), (b1, g2gen))
 
 
@@ -137,11 +143,11 @@ def verify_blob_batch_fused(
     pot = 1 if B <= 1 else 1 << (B - 1).bit_length()
     wy = torch.cat([wy, wy.new_zeros(pot - B, FR.n_digits)])
     s_plain = L.from_mont(FR, L.sum_mod(FR, wy, axis=-2))  # (16,)
-    neg_g1 = ops.pneg(F1, tuple(torch.as_tensor(g, device=dev)[None] for g in g1mod.GENERATOR))
+    neg_g1 = ops.pneg(F1, tuple(g[None] for g in g1mod.generator(dev)))
     lanes = tuple(
         torch.cat([p, c, p, g, c, p]) for p, c, g in zip(proof_pt, comm_pt, neg_g1)
     )
-    r = torch.as_tensor(_R_DIGITS, device=dev).expand(2 * B, FR.n_digits)
+    r = decompress.group_order(dev).expand(2 * B, FR.n_digits)
     sc = torch.cat([w_plain, w_plain, zw_plain, s_plain[None], r])
     prods = cuda_mont.g1_scalar_mul(lanes, sc)
     lin = tuple(a[: 3 * B].reshape(3, B, *a.shape[1:]) for a in prods)
@@ -176,13 +182,13 @@ def verify_kzg_bytes(proof_bytes, comm_bytes, z_plain, y_plain, tau2):
     pts, enc_ok, curve_ok = decompress.g1_decompress_nosub(torch.cat([proof_bytes, comm_bytes]))
     proof_pt = tuple(a[:B] for a in pts)
     comm_pt = tuple(a[B:] for a in pts)
-    neg_g1 = ops.pneg(F1, tuple(torch.as_tensor(g, device=dev).expand(B, -1) for g in g1mod.GENERATOR))
+    neg_g1 = ops.pneg(F1, tuple(g.expand(B, -1) for g in g1mod.generator(dev)))
     lanes = tuple(torch.cat([g, a]) for g, a in zip(neg_g1, pts))
-    sc = torch.cat([y_plain, torch.as_tensor(_R_DIGITS, device=dev).expand(2 * B, FR.n_digits)])
+    sc = torch.cat([y_plain, decompress.group_order(dev).expand(2 * B, FR.n_digits)])
     prods = cuda_mont.g1_scalar_mul(lanes, sc)
     sub_ok = ops.is_identity(F1, tuple(a[B:] for a in prods))  # [proof | comm]
     b1 = ops.padd(F1, comm_pt, tuple(a[:B] for a in prods))
-    neg_g2 = ops.pneg(F2, tuple(torch.as_tensor(g, device=dev).expand(B, 2, -1) for g in g2mod.GENERATOR))
+    neg_g2 = ops.pneg(F2, tuple(g.expand(B, 2, -1) for g in g2mod.generator(dev)))
     a2 = ops.padd(F2, tuple(t.expand(B, 2, -1) for t in tau2), cuda_pairing.g2_scalar_mul(neg_g2, z_plain))
     return (
         proof_pt,
@@ -201,6 +207,47 @@ def fr_from_mont(x_mont: torch.Tensor) -> torch.Tensor:
     return L.from_mont(FR, x_mont)
 
 
+def verify_blob_batch(blob_bytes, comm_bytes, proof_bytes, z_plain, zw_plain, w_plain, roots, tau2):
+    """verify_blob_batch_fused, then pairing_check: (verdict, a 0-d bool
+    tensor, and the (7, B) packed masks).  graphs.py captures it as one
+    CUDA graph."""
+    pc_in, packed = verify_blob_batch_fused(
+        blob_bytes, comm_bytes, proof_bytes, z_plain, zw_plain, w_plain, roots, tau2)
+    return pairing_check(*pc_in)[0], packed
+
+
+#: the torch dtype of each numpy dtype that to_device takes
+_DTYPES = {np.dtype(np.uint8): torch.uint8, np.dtype(np.int64): torch.int64}
+
+
+def to_device(arrays, device) -> list[torch.Tensor]:
+    """Host arrays (uint8 or int64) on `device` in one copy: packed into
+    one host buffer at 8-byte aligned offsets, copied, and split into views
+    of the arrays' shapes and dtypes.  For a CUDA device the buffer is
+    pinned and the copy asynchronous, so the host goes on at once; PyTorch's
+    caching host allocator reuses a pinned block only after its copy has
+    run.  On the CPU the views are of the fresh buffer itself."""
+    offsets, total = [], 0
+    for a in arrays:
+        offsets.append(total)
+        total += -(-a.nbytes // 8) * 8
+    device = torch.device(device)
+    buf = torch.empty(total, dtype=torch.uint8, pin_memory=device.type == "cuda")
+    host_view = buf.numpy()
+    for a, o in zip(arrays, offsets):
+        host_view[o:o + a.nbytes] = np.ascontiguousarray(a).reshape(-1).view(np.uint8)
+    on_dev = buf.to(device, non_blocking=True)
+    return [on_dev[o:o + a.nbytes].view(_DTYPES[a.dtype]).view(a.shape)
+            for a, o in zip(arrays, offsets)]
+
+
+def fr_planes_host(vals) -> np.ndarray:
+    """Python ints -> (len, 16) PLAIN Fr digit planes of their residues
+    mod r, as a host array."""
+    raw = b"".join((v % host.R).to_bytes(32, "little") for v in vals)
+    return np.frombuffer(raw, dtype="<u2").reshape(-1, FR.n_digits).astype(np.int64)
+
+
 def fr_planes(vals, device) -> torch.Tensor:
     """Python ints -> (len, 16) PLAIN Fr digit planes on `device`."""
-    return torch.as_tensor(np.stack([FR.from_int(v, mont=False) for v in vals])).to(device)
+    return to_device([fr_planes_host(vals)], device)[0]

@@ -29,8 +29,8 @@ def miller_loop(p_g1, q_g2):
     dev = p_g1[0].device
     p_inf = ops.is_identity(ops.FP_FIELD, p_g1)
     q_inf = ops.is_identity(ops.FP2_FIELD, q_g2)
-    g1 = tuple(torch.as_tensor(g, device=dev).expand_as(c) for g, c in zip(g1mod.GENERATOR, p_g1))
-    g2 = tuple(torch.as_tensor(g, device=dev).expand_as(c) for g, c in zip(g2mod.GENERATOR, q_g2))
+    g1 = tuple(g.expand_as(c) for g, c in zip(g1mod.generator(dev), p_g1))
+    g2 = tuple(g.expand_as(c) for g, c in zip(g2mod.generator(dev), q_g2))
     xp, yp = ops.to_affine(ops.FP_FIELD, ops.pselect(ops.FP_FIELD, p_inf, g1, p_g1))
     xq, yq = ops.to_affine(ops.FP2_FIELD, ops.pselect(ops.FP2_FIELD, q_inf, g2, q_g2))
     f = cuda_pairing.miller_loop_affine(xp, yp, xq, yq)

@@ -1,0 +1,182 @@
+"""The port's batch-verification program reads nothing back to the host and
+uploads no constant twice: the two properties that let graphs.py capture it
+as one CUDA graph, held on the CPU.
+
+protocol.verify_blob_batch_fused and pairing_check run on one batch of the
+known-secret setup of tests/test_torch_kzg.py (n = 8, 3 blobs and a pad
+lane) three times:
+
+1. plainly, which also puts every constant on the device (the CPU);
+2. under a TorchDispatchMode that raises on every operation that reads a
+   tensor's value on the host (aten._local_scalar_dense, item, is_nonzero,
+   nonzero, equal): on a CUDA device each would wait for the device;
+3. with torch.as_tensor, torch.tensor and torch.from_numpy made to raise, so
+   no constant is built from host data again.
+
+Runs 2 and 3 must finish and give the first run's outputs bit for bit.
+
+On a CUDA device the wrappers of K2-K5 are one kernel launch each, which
+reads nothing back.  Their plain versions, which only the CPU runs, repeat
+the kernels' arithmetic over thousands of steps (about 9 s of the 9.5 s of
+a plain run on the CPU), so in these runs stand-ins take their place: each
+returns a fresh tensor of the kernel's output shape, a cheap function of
+its inputs.  K1 keeps its plain version, the digit convolution and the
+Montgomery reduction of fields/limbs.py, and every limbs operation runs
+under the mode once more on its own.  tests/test_torch_kzg.py holds the
+full plain run against the oracle.
+"""
+
+import random
+
+import numpy as np
+import pytest
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+
+from kateth_tpu.kzg import DeviceSetup
+from kateth_tpu.kzg import KzgConfig as JaxKzgConfig
+from kateth_tpu.oracle import field as of
+from kateth_tpu.oracle.kzg import OracleSetup, blob_to_bytes
+from kateth_tpu_torch import cuda_pairing
+from kateth_tpu_torch.fields import cuda_mont
+from kateth_tpu_torch.fields import limbs as L
+from kateth_tpu_torch.fields.specs import FP, FR
+from kateth_tpu_torch.kzg import Kzg, KzgConfig, TorchSetup
+from kateth_tpu_torch.kzg import protocol
+from kateth_tpu_torch.kzg.setup import FIELDS
+
+N = 8
+aten = torch.ops.aten
+
+#: the operations that read a tensor's value on the host
+HOST_READS = {aten._local_scalar_dense, aten.item, aten.is_nonzero, aten.nonzero, aten.equal}
+
+
+class NoHostReads(TorchDispatchMode):
+    """Raises on any operation of HOST_READS."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func.overloadpacket in HOST_READS:
+            raise AssertionError(f"the program reads a tensor on the host: {func}")
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+def pow_stand_in(spec, a, e):
+    return L.add(spec, a, a)
+
+
+def ladder_stand_in(point, scalar_digits):
+    batch = torch.broadcast_shapes(scalar_digits.shape[:-1], *(c.shape[:-1] for c in point))
+    s = torch.cat([scalar_digits, scalar_digits[..., :8]], -1).expand(*batch, FP.n_digits)
+    return tuple(L.add(FP, c.expand(*batch, FP.n_digits), s) for c in point)
+
+
+def miller_stand_in(xp, yp, xq, yq):
+    f6 = torch.stack([L.add(FP, xp[..., None, :], xq), L.add(FP, yp[..., None, :], yq), xq], -3)
+    return torch.stack([f6, f6], -4)  # (..., 2, 3, 2, 24)
+
+
+def hard_part_stand_in(f):
+    return L.add(FP, f, f)
+
+
+@pytest.fixture(scope="module")
+def stand_ins():
+    """K2-K5's wrappers replaced by cheap stand-ins for the module's tests."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(cuda_mont, "pow_const", pow_stand_in)
+        mp.setattr(cuda_mont, "g1_scalar_mul", ladder_stand_in)
+        mp.setattr(cuda_pairing, "miller_loop_affine", miller_stand_in)
+        mp.setattr(cuda_pairing, "hard_part", hard_part_stand_in)
+        yield
+
+
+@pytest.fixture(scope="module")
+def batch(stand_ins):
+    """The staged arguments of one batch, and its outputs from a plain run."""
+    rng = random.Random(0x5F1C)
+    osetup = OracleSetup.generate_insecure(N, g2_len=2)
+    jax_setup = DeviceSetup.from_oracle(osetup, JaxKzgConfig(n=N, g2_len=2))
+    arrays = [np.asarray(getattr(jax_setup, k)) for k in FIELDS]
+    kzg = Kzg(TorchSetup.from_arrays(arrays, KzgConfig(n=N, g2_len=2, canon_batch=4), "cpu"))
+    blobs = [blob_to_bytes([rng.randrange(of.R) for _ in range(N)]) for _ in range(3)]
+    cms = [osetup.blob_to_commitment(b) for b in blobs]
+    proofs = [osetup.blob_proof(b, c) for b, c in zip(blobs, cms)]
+    _, args = kzg._verify_batch_stage(blobs, cms, proofs)
+    return args, run(args)
+
+
+def run(args):
+    """verify_blob_batch_fused, then pairing_check: every output tensor."""
+    pc_in, packed = protocol.verify_blob_batch_fused(*args)
+    verdict = protocol.pairing_check(*pc_in)
+    return [verdict, packed, *(c for pt in pc_in for c in pt)]
+
+
+def assert_same(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+def test_plain_run_shapes(batch):
+    _, (verdict, packed, *pc_in) = batch
+    assert verdict.shape == (1,) and verdict.dtype == torch.bool
+    assert packed.shape == (7, 4)
+    assert bool(packed[[0, 1, 4]].all())  # canonical blobs, valid encodings
+    assert [tuple(c.shape) for c in pc_in] == [(1, 24)] * 3 + [(1, 2, 24)] * 3 + [(1, 24)] * 3
+
+
+@pytest.mark.parametrize("field", ["fr", "fp"])
+def test_limbs_ops_no_host_reads(field):
+    """Every fields/limbs.py operation, its plain Montgomery product and
+    power included, under the mode: the same digits as without it."""
+    spec = {"fr": FR, "fp": FP}[field]
+    rng = np.random.default_rng(11)
+    d = rng.integers(0, 1 << 16, (2, 8, spec.n_digits), dtype=np.int64)
+    d[..., -1] %= int(spec.mod_digits[-1])
+    d[0, 0] = spec.mod_digits - np.eye(1, spec.n_digits, 0, dtype=np.int64)[0]  # N - 1
+    d[0, 1] = 0
+    a, b = torch.as_tensor(d[0]), torch.as_tensor(d[1])
+    ks = np.array([12, 36, 8, 1, 3, 127, 2, 5]).reshape(8, 1)
+
+    def ops():
+        return [
+            L.add(spec, a, b), L.sub(spec, a, b), L.neg(spec, a), L.cond_sub_mod(spec, a),
+            cuda_mont.mont_mul_plain(spec, a, b), L.to_mont(spec, a), L.from_mont(spec, a),
+            L.mul_small(spec, a, 12), L.mul_small(spec, a, ks), L.lt_modulus(spec, a),
+            L.sum_mod(spec, a), L.batch_inv(spec, a), cuda_mont.pow_const_plain(spec, a, 11),
+        ]
+
+    want = ops()
+    with NoHostReads():
+        got = ops()
+    assert_same(got, want)
+
+
+def test_no_host_reads(batch):
+    args, want = batch
+    with NoHostReads():
+        got = run(args)
+    assert_same(got, want)
+
+
+def test_constants_are_made_once(batch, monkeypatch):
+    args, want = batch
+
+    def refuse(*_, **__):
+        raise AssertionError("a constant was built from host data again")
+
+    for name in ("as_tensor", "tensor", "from_numpy"):
+        monkeypatch.setattr(torch, name, refuse)
+    got = run(args)
+    monkeypatch.undo()
+    assert_same(got, want)
