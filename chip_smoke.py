@@ -45,12 +45,31 @@ Phases, one line each; any failure exits non-zero before the last line:
    verifying the valid batch and one the wrong proof, 4 times each, each
    required to get its own verdicts; and eager against graph streaming
    proofs/s, 8 x 64 blobs, six times each in turns;
-   - single-point verify: every verify_kzg_proof vector;
+   - single-point verify: every verify_kzg_proof vector, through the
+     verify_kzg graph of the Kzg's graph cache (captured at the first; its
+     replays must rise; its pool bytes and a replay's launches printed);
    - commit and prove with the default comb (comb_h = 12): the first
-     commit, which builds the comb table (seconds, peak memory), every
-     blob_to_kzg_commitment, compute_kzg_proof and compute_blob_kzg_proof
-     vector, and one 64-blob blobs_to_kzg_commitments (commitments/s), which
-     must launch K8 once;
+     commit, which builds the comb table (seconds, peak memory) and
+     captures the commit graph, every blob_to_kzg_commitment,
+     compute_kzg_proof and compute_blob_kzg_proof vector (the commit, prove
+     and validate_g1 graphs' replays must rise), and one 64-blob
+     blobs_to_kzg_commitments (commitments/s), which must launch K8 once;
+   then, apart from the paths' counts: the verify_kzg, commit, prove and
+   validate_g1 graphs' outputs held bit for bit against the same programs
+   run eagerly (a twin Kzg with no graph cache, the same staging) on valid
+   inputs and on a proof with a bad encoding, a commitment off the curve, a
+   non-canonical blob element, and the cases with two bad inputs (a bad
+   proof and a commitment off the curve; a non-canonical blob element and
+   a bad z; a commitment with a bad encoding and a blob of the wrong
+   length; a commitment off the curve and a non-canonical blob element),
+   each dispatch under torch.cuda.set_sync_debug_mode("error") and each
+   case also through the public API, graph and eager (its result or the
+   JAX package's KzgError); a replay's launches equal to an eager call's
+   for each program; every capture's pool bytes and the eager commit's own
+   peak working set; two threads on one Kzg, one committing 64 blobs and
+   one verifying a valid and a wrong batch; and graph against eager times,
+   six runs each in turns, of a single-point verify, a 64-blob commit and a
+   64-blob compute_blob_kzg_proofs;
    - commit with the windowed Pippenger (comb_h = 0): every
      blob_to_kzg_commitment vector;
    - form conversion: 64 mainnet blobs (the valid blob_to_kzg_commitment
@@ -71,6 +90,7 @@ Phases, one line each; any failure exits non-zero before the last line:
      the 64 blobs (with the comb path's table) must give their vectors'
      commitments, and a small windowed sharded_commit must equal msm.msm.
    A vector's output must match; `output: null` must raise KzgError.
+   After the paths, the device memory reserved.
 5. the kernels JSON line (with K1's launches by lane count), the
    nvidia-smi line, and the result line.
 
@@ -534,7 +554,7 @@ def kernel_phases(dev, smi: str) -> list[dict]:
 #: the kernels each path of the run must launch
 PATH_KERNELS = {
     "batch verify": ("mont_mul", "pow_chain", "g1_ladder", "miller", "hard_part"),
-    "single-point verify": ("g1_ladder", "miller", "hard_part", "g2_ladder"),
+    "single-point verify": ("mont_mul", "pow_chain", "g1_ladder", "miller", "hard_part", "g2_ladder"),
     "commit and prove (comb_h = 12)": ("mont_mul", "pow_chain", "g1_ladder", "comb_chain_sum"),
     "commit (comb_h = 0)": ("prefix_scan",),
     "form conversion": ("mont_mul",),
@@ -733,6 +753,205 @@ def graph_against_eager(kzg, batch, smi: str) -> None:
             f"{len(r)} runs in turns) [{smi}]")
 
 
+def flat_tensors(outputs) -> list:
+    """A dispatch's outputs (a tuple of tensors, or a list of them or of
+    such tuples, one a chunk) as one list of tensors."""
+    return [t for x in outputs for t in (x if isinstance(x, (tuple, list)) else (x,))]
+
+
+def eager_twin(kzg):
+    """A Kzg on the same setup and comb table that runs every program
+    eagerly: the same API code with no graph cache."""
+    from kateth_tpu_torch.kzg import Kzg
+
+    twin = Kzg(kzg.setup)
+    twin._graphs = twin._verify_graphs = None
+    twin._comb_table = kzg._comb_table
+    return twin
+
+
+def path_graphs_against_eager(kzg, batch, smi: str) -> None:
+    """The single-point verify, validation, commit and prove graphs against
+    the same programs run eagerly (an eager twin of the Kzg, the same API
+    code and staging): their outputs bit for bit on a valid input and on
+    each error case, each also through the public API (its result or its
+    KzgError); each dispatch under torch.cuda.set_sync_debug_mode("error")
+    up to its read-back; a replay's launches against an eager call's; two
+    threads on one Kzg, one committing and one verifying batches; the
+    graphs' pool bytes and the eager commit's own peak working set; graph
+    against eager times, in turns.  Its launches are no path's."""
+    from kateth_tpu_torch import cuda_lib, host
+    from kateth_tpu_torch.kzg import KzgError
+
+    eager = eager_twin(kzg)
+    d = os.path.join(VECTORS, "verify_kzg_proof", "valid_true", "data.yaml")
+    point = parse_vector(d)["input"]
+    proof, comm, z, y = (point[k] for k in ("proof", "commitment", "z", "y"))
+    case = parse_vector(os.path.join(VECTORS, "compute_blob_kzg_proof", "valid_0", "data.yaml"))
+    blob, blob_comm = case["input"]["blob"], case["input"]["commitment"]
+    blob_proof = case["output"]
+    blobs, comms = [blob] * 64, [blob_comm] * 64
+    case = parse_vector(os.path.join(VECTORS, "compute_kzg_proof", "valid_0", "data.yaml"))
+    p_blobs, p_z, (p_proof, p_y) = [case["input"]["blob"]] * 64, case["input"]["z"], case["output"]
+    x = next(x for x in range(1, 100) if host.fp_sqrt((x**3 + 4) % host.P) is None)
+    off_curve = bytes([0x80]) + x.to_bytes(47, "big")
+    bad_blob = b"\xff" * 32 + blob[32:]
+    z_int = int.from_bytes(p_z, "big")
+    bad_z = host.R.to_bytes(32, "big")
+
+    def with_item(items, i, value):
+        items = list(items)
+        items[i] = value
+        return items
+
+    # (name, program, dispatch of a Kzg, public call of a Kzg, expected result or message)
+    cases = [
+        ("valid opening", "verify_kzg", lambda k: k._verify_kzg_dispatch(proof, comm, z, y),
+         lambda k: k.verify_kzg_proof(proof, comm, z, y), True),
+        ("proof with a bad encoding", "verify_kzg",
+         lambda k: k._verify_kzg_dispatch(bytes(48), comm, z, y),
+         lambda k: k.verify_kzg_proof(bytes(48), comm, z, y), "invalid G1 point: BadEncoding"),
+        ("commitment off the curve", "verify_kzg",
+         lambda k: k._verify_kzg_dispatch(proof, off_curve, z, y),
+         lambda k: k.verify_kzg_proof(proof, off_curve, z, y), "invalid G1 point: NotOnCurve"),
+        ("bad proof and commitment off the curve", "verify_kzg",
+         lambda k: k._verify_kzg_dispatch(bytes(48), off_curve, z, y),
+         lambda k: k.verify_kzg_proof(bytes(48), off_curve, z, y), "invalid G1 point: BadEncoding"),
+        ("64 valid blobs", "commit", lambda k: k._commit_dispatch(blobs),
+         lambda k: k.blobs_to_kzg_commitments(blobs), [blob_comm] * 64),
+        ("non-canonical blob element", "commit",
+         lambda k: k._commit_dispatch(with_item(blobs, 9, bad_blob)),
+         lambda k: k.blobs_to_kzg_commitments(with_item(blobs, 9, bad_blob)),
+         "non-canonical field element in blob"),
+        ("64 valid blobs at z", "prove", lambda k: k._prove_dispatch(p_blobs, [z_int] * 64),
+         lambda k: k.compute_kzg_proofs(p_blobs, [p_z] * 64), ([p_proof] * 64, [p_y] * 64)),
+        ("non-canonical blob element and a bad z", "prove",
+         lambda k: k._prove_dispatch(with_item(p_blobs, 3, bad_blob), with_item([z_int] * 64, 5, 0)),
+         lambda k: k.compute_kzg_proofs(with_item(p_blobs, 3, bad_blob), with_item([p_z] * 64, 5, bad_z)),
+         "non-canonical field element in blob"),
+        ("64 blob proofs", "prove",
+         lambda k: k._prove_dispatch(blobs, k._challenges(blobs, comms)),
+         lambda k: k.compute_blob_kzg_proofs(blobs, comms), [blob_proof] * 64),
+        ("64 valid commitments", "validate_g1", lambda k: k._validate_dispatch(comms),
+         lambda k: k.compute_blob_kzg_proofs(blobs, comms), [blob_proof] * 64),
+        ("commitment with a bad encoding and a blob of the wrong length", "validate_g1",
+         lambda k: k._validate_dispatch(with_item(comms, 7, bytes(48))),
+         lambda k: k.compute_blob_kzg_proofs(with_item(blobs, 2, blob[:-1]), with_item(comms, 7, bytes(48))),
+         "invalid G1 point: BadEncoding"),
+        ("commitment off the curve and a non-canonical blob element", "validate_g1",
+         lambda k: k._validate_dispatch(with_item(comms, 7, off_curve)),
+         lambda k: k.compute_blob_kzg_proofs(with_item(blobs, 2, bad_blob), with_item(comms, 7, off_curve)),
+         "invalid G1 point: NotOnCurve"),
+    ]
+    for name, program, dispatch, call, want in cases:
+        graphs = kzg._graphs.programs[program]
+        replays = sum(g.replays for g in graphs.graphs.values())
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = dispatch(kzg)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        if sum(g.replays for g in graphs.graphs.values()) == replays:
+            raise AssertionError(f"path graphs: the {name} case did not replay {program}")
+        got, ref = flat_tensors(got), flat_tensors(dispatch(eager))
+        if len(got) != len(ref) or not all(
+                g.dtype == r.dtype and torch.equal(g, r) for g, r in zip(got, ref)):
+            raise AssertionError(f"path graphs: the {name} case's {program} outputs differ from eager")
+        for k in (kzg, eager):
+            try:
+                result = call(k)
+            except KzgError as e:
+                result = str(e)
+            if result != want:
+                raise AssertionError(f"path graphs: the {name} case gave {result!r}, expected {want!r}")
+    log(f"path graphs: verify_kzg, commit, prove and validate_g1 outputs equal to the eager "
+        f"programs' bit for bit in {len(cases)} cases ({', '.join(c[0] for c in cases)}), each "
+        f"dispatch with no host sync (sync debug mode \"error\"); the public API gives each "
+        f"case's result or KzgError, graph and eager alike")
+
+    for name, dispatch in (("verify_kzg", cases[0][2]), ("commit", cases[4][2]),
+                           ("prove", cases[8][2]), ("validate_g1", cases[9][2])):
+        counts = {}
+        for mode, k in (("eager", eager), ("graph", kzg)):
+            torch.cuda.synchronize()
+            cuda_lib.reset_launch_counts()
+            dispatch(k)
+            torch.cuda.synchronize()
+            counts[mode] = cuda_lib.launch_counts()
+        if counts["graph"] != counts["eager"]:
+            raise AssertionError(f"path graphs: a {name} replay counts {counts['graph']}, "
+                                 f"the eager call {counts['eager']}")
+        log(f"path graphs: a {name} replay counts the eager call's launches: "
+            f"{counts['eager']['launches']}")
+
+    # the commit graph's pool against the eager commit's own working set:
+    # its peak allocated bytes, and what it newly reserves from an emptied
+    # cache (as a capture does)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base, base_reserved = torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+    eager.blobs_to_kzg_commitments(blobs)
+    torch.cuda.synchronize()
+    working = torch.cuda.max_memory_allocated() - base
+    working_reserved = torch.cuda.max_memory_reserved() - base_reserved
+    for name, graphs in sorted(kzg._graphs.programs.items()):
+        for size, g in sorted(graphs.graphs.items()):
+            log(f"pool: {name} at {size}: {g.pool_bytes} bytes allocated, "
+                f"{g.pool_reserved_bytes} bytes newly reserved [{smi}]")
+    log(f"pool: the eager 64-blob commit's peak working set (the table apart) {working} bytes "
+        f"allocated, {working_reserved} bytes newly reserved from an emptied cache; the commit "
+        f"capture reserved {kzg._graphs.programs['commit'].graphs[64].pool_reserved_bytes} [{smi}]")
+
+    # two threads on one Kzg: one commits while the other verifies batches
+    wrong = (batch[0], batch[1], with_item(batch[2], 0, batch[2][1]))
+    results = {"commit": [], "verify": []}
+
+    def committer():
+        for _ in range(3):
+            results["commit"].append(kzg.blobs_to_kzg_commitments(blobs) == [blob_comm] * 64)
+
+    def verifier():
+        for _ in range(3):
+            results["verify"].append((kzg.verify_blob_kzg_proof_batch(*batch),
+                                      kzg.verify_blob_kzg_proof_batch(*wrong)))
+
+    threads = [threading.Thread(target=committer), threading.Thread(target=verifier)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if results != {"commit": [True] * 3, "verify": [(True, False)] * 3}:
+        raise AssertionError(f"path graphs: two threads on one Kzg gave {results}")
+    log("path graphs: two threads on one Kzg, one committing 64 blobs three times and one "
+        "verifying a valid and a wrong batch three times, each got its own results")
+
+    # graph against eager, in turns
+    ops = {
+        "single-point verify_kzg_proof": (lambda k: k.verify_kzg_proof(proof, comm, z, y), True),
+        "64-blob blobs_to_kzg_commitments": (lambda k: k.blobs_to_kzg_commitments(blobs),
+                                             [blob_comm] * 64),
+        "64-blob compute_blob_kzg_proofs": (lambda k: k.compute_blob_kzg_proofs(blobs, comms),
+                                            [blob_proof] * 64),
+    }
+    for op, (fn, want) in ops.items():
+        times = {"graph": [], "eager": []}
+        for order in (("eager", "graph"), ("graph", "eager")) * 3:
+            for mode in order:
+                k = kzg if mode == "graph" else eager
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got = fn(k)
+                times[mode].append((time.perf_counter() - t0) * 1e3)
+                if got != want:
+                    raise AssertionError(f"path graphs: {mode} {op} gave a wrong result")
+        log(f"path graphs: {op}: graph median {statistics.median(times['graph']):.3f} ms "
+            f"(runs {min(times['graph']):.3f}-{max(times['graph']):.3f}), eager median "
+            f"{statistics.median(times['eager']):.3f} ms (runs {min(times['eager']):.3f}-"
+            f"{max(times['eager']):.3f}), 6 runs each in turns [{smi}]")
+
+
 def main_path(dev, smi: str) -> tuple[dict, dict]:
     """Each path of the port through its public entry points at mainnet
     width; returns the launches per kernel summed over the paths, and
@@ -791,6 +1010,10 @@ def main_path(dev, smi: str) -> tuple[dict, dict]:
         kzg = holder["kzg"]
         run_vectors("verify_kzg_proof",
                     lambda i: kzg.verify_kzg_proof(i["proof"], i["commitment"], i["z"], i["y"]))
+        graph = kzg._graphs.programs["verify_kzg"].graphs[1]
+        log(f"graph: verify_kzg captured at 1 opening, {graph.replays} replays over the vectors; "
+            f"pool {graph.pool_bytes} bytes allocated, {graph.pool_reserved_bytes} bytes newly "
+            f"reserved; a replay launches {graph.launches['launches']} [{smi}]")
 
     def commit_comb():
         kzg = holder["kzg"]
@@ -804,12 +1027,22 @@ def main_path(dev, smi: str) -> tuple[dict, dict]:
         first = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated(dev) / 2**30
         rows = kzg.config.n << kzg.config.comb_h
-        log(f"commit: first commit (comb table of {rows} rows built, then one 64-lane commit) "
-            f"{first:.2f} s, peak device memory {peak:.2f} GiB [{smi}]")
-        run_vectors("blob_to_kzg_commitment", lambda i: kzg.blob_to_kzg_commitment(i["blob"]))
-        run_vectors("compute_kzg_proof", lambda i: kzg.compute_kzg_proof(i["blob"], i["z"]))
-        run_vectors("compute_blob_kzg_proof",
-                    lambda i: kzg.compute_blob_kzg_proof(i["blob"], i["commitment"]))
+        log(f"commit: first commit (comb table of {rows} rows built, then the 64-lane commit "
+            f"graph captured) {first:.2f} s, peak device memory {peak:.2f} GiB [{smi}]")
+        programs = kzg._graphs.programs
+        for op, call, names in (
+                ("blob_to_kzg_commitment", lambda i: kzg.blob_to_kzg_commitment(i["blob"]), ("commit",)),
+                ("compute_kzg_proof", lambda i: kzg.compute_kzg_proof(i["blob"], i["z"]), ("prove",)),
+                ("compute_blob_kzg_proof",
+                 lambda i: kzg.compute_blob_kzg_proof(i["blob"], i["commitment"]),
+                 ("validate_g1", "prove"))):
+            before = {k: programs[k].graphs[64].replays if k in programs else 0 for k in names}
+            run_vectors(op, call)
+            after = {k: programs[k].graphs[64].replays for k in names}
+            if any(after[k] <= before[k] for k in names):
+                raise AssertionError(f"{op}: the vectors did not replay the graphs {names}")
+            log(f"graph: {op} vectors replayed " + ", ".join(
+                f"{k} {after[k] - before[k]} times" for k in names))
         blobs = [blob] * 64
         times = []
         for _ in range(3):
@@ -825,6 +1058,11 @@ def main_path(dev, smi: str) -> tuple[dict, dict]:
         dt = statistics.median(times)
         log(f"commit: 64-blob blobs_to_kzg_commitments {dt:.3f} s (median of 3) = "
             f"{64 / dt:.1f} commitments/s, one K8 launch each [{smi}]")
+        for name in ("commit", "prove", "validate_g1"):
+            graph = programs[name].graphs[64]
+            log(f"graph: {name} captured at 64 blobs; pool {graph.pool_bytes} bytes allocated, "
+                f"{graph.pool_reserved_bytes} bytes newly reserved; a replay launches "
+                f"{graph.launches['launches']} [{smi}]")
 
     def commit_msm():
         base = holder["kzg"]
@@ -835,6 +1073,7 @@ def main_path(dev, smi: str) -> tuple[dict, dict]:
     graph_against_eager(holder["kzg"], holder["batch"], smi)
     drive("single-point verify", single_verify, totals, k1_buckets)
     drive("commit and prove (comb_h = 12)", commit_comb, totals, k1_buckets)
+    path_graphs_against_eager(holder["kzg"], holder["batch"], smi)
     def form_conversion():
         kzg = holder["kzg"]
         d = os.path.join(VECTORS, "blob_to_kzg_commitment")
@@ -974,6 +1213,8 @@ def main_path(dev, smi: str) -> tuple[dict, dict]:
         drive(path, fn, totals, k1_buckets)
         log(f"path {path}: {time.perf_counter() - t0:.2f} s")
     log(f"mont_mul launches by lanes over the seven paths: {k1_buckets}")
+    log(f"device memory reserved after all paths: {torch.cuda.memory_reserved(dev)} bytes "
+        f"(allocated {torch.cuda.memory_allocated(dev)}) [{smi}]")
     return totals, k1_buckets
 
 

@@ -14,6 +14,7 @@ its norm.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..fields import fp2
@@ -53,10 +54,15 @@ def g1_compress_planes(p) -> torch.Tensor:
     return _with_flags(L.digits_to_be_bytes(FP, x), L.is_zero(Z), gt_half(y))
 
 
+def rows_to_bytes(raw: np.ndarray) -> list[bytes]:
+    """A read-back (B, W) uint8 array of encodings -> list of W-byte
+    strings."""
+    return [row.tobytes() for row in raw]
+
+
 def points_to_bytes(pt) -> list[bytes]:
     """Batched projective Montgomery points -> list of 48-byte encodings."""
-    raw = g1_compress_planes(pt).reshape(-1, 48).cpu().numpy()
-    return [raw[i].tobytes() for i in range(raw.shape[0])]
+    return rows_to_bytes(g1_compress_planes(pt).reshape(-1, 48).cpu().numpy())
 
 
 def g2_compress_planes(p) -> torch.Tensor:
@@ -72,5 +78,4 @@ def g2_compress_planes(p) -> torch.Tensor:
 
 def g2_points_to_bytes(pt) -> list[bytes]:
     """Batched projective Montgomery G2 points -> list of 96-byte encodings."""
-    raw = g2_compress_planes(pt).reshape(-1, 96).cpu().numpy()
-    return [raw[i].tobytes() for i in range(raw.shape[0])]
+    return rows_to_bytes(g2_compress_planes(pt).reshape(-1, 96).cpu().numpy())

@@ -11,22 +11,29 @@ its batch to a multiple of config.canon_batch (zero blobs, generator
 points), so the device sees a fixed set of shapes.  Host data reaches a
 CUDA device by asynchronous copies from pinned memory.
 
-On a CUDA device the batch verification runs as one CUDA graph per padded
-batch size (graphs.py), captured at the first batch of that size; the
-dispatch of a batch never waits for the device, so streaming overlaps a
-batch's host prefix with the device work of the batches before it.  CPU
-tensors run the same program eagerly.
+Each operation's device work is one program of kzg/protocol.py a batch,
+or a chunk of commit_chunk blobs: verify_blob_batch, verify_kzg,
+validate_g1, commit_chunk and prove_chunk.  On a CUDA device each runs as a
+CUDA graph of this Kzg's graph cache (graphs.py), captured at the first call
+of its batch size and replayed after; the outputs of all of an operation's
+programs are read back in one copy, and the errors are raised from them in
+the JAX package's order.  The batch verification's dispatch never waits
+for the device, so streaming overlaps a batch's host prefix with the
+device work of the batches before it.  CPU tensors run the same programs
+eagerly, and so does the windowed commit (comb_h = 0) on CUDA.
 """
 
 from __future__ import annotations
 
+import functools
 import hashlib
+import threading
 
 import numpy as np
 import torch
 
 from .. import graphs, host, ntt
-from ..curves import compress, comb, decompress
+from ..curves import compress, comb
 from ..fields.specs import FR
 from ..host import KzgError
 from . import protocol
@@ -54,10 +61,13 @@ class Kzg:
         #: the fixed-base comb table, built at the first commit (6.4 GB on
         #: the card at mainnet), never for a caller who only verifies
         self._comb_table = None
-        #: the batch verification's CUDA graphs of this setup (None on the
-        #: CPU, which runs the program eagerly)
-        self._verify_graphs = (graphs.VerifyBatchGraphs(setup.roots, setup.tau2)
-                               if self.device.type == "cuda" else None)
+        self._table_lock = threading.Lock()
+        #: the CUDA graphs of this setup's device programs (None on the CPU,
+        #: which runs the programs eagerly), batch verify's among them
+        cuda = self.device.type == "cuda"
+        self._graphs = graphs.GraphCache(self.device) if cuda else None
+        self._verify_graphs = (graphs.VerifyBatchGraphs(setup.roots, setup.tau2, self._graphs)
+                               if cuda else None)
 
     @classmethod
     def load_json(
@@ -103,20 +113,30 @@ class Kzg:
         return protocol.to_device([np.frombuffer(data, dtype=np.uint8).reshape(-1, width)],
                                   self.device)[0]
 
-    def _decode_blobs(self, blobs, pad_to: int | None = None):
-        """list[bytes] -> (plain element planes (B, N, 16), ok (B,)) on the
-        device.  Length errors raise here; canonicality comes back as a
-        mask.  With pad_to, zero blobs pad the batch; callers slice [:n]."""
+    def _blob_rows(self, blobs, rows: int) -> np.ndarray:
+        """Blobs of checked lengths as a (rows, bytes_per_blob) uint8 host
+        array, zero blobs padding it."""
+        nb = self.config.bytes_per_blob
+        joined = b"".join(bytes(b) for b in blobs) + bytes(nb * (rows - len(blobs)))
+        return np.frombuffer(joined, dtype=np.uint8).reshape(rows, nb)
+
+    def _check_blob_lengths(self, blobs) -> None:
         nbytes = self.config.bytes_per_blob
         for b in blobs:
             if len(b) != nbytes:
                 raise KzgError("invalid blob length")
-        pad = max(0, (pad_to or 0) - len(blobs))
-        joined = b"".join(bytes(b) for b in blobs) + b"\x00" * (nbytes * pad)
-        return protocol.decode_blobs(self._to_device(joined, nbytes))
+
+    def _decode_blobs(self, blobs, pad_to: int | None = None):
+        """list[bytes] -> (plain element planes (B, N, 16), ok (B,)) on the
+        device.  Length errors raise here; canonicality comes back as a
+        mask.  With pad_to, zero blobs pad the batch; callers slice [:n]."""
+        self._check_blob_lengths(blobs)
+        rows = self._blob_rows(blobs, max(len(blobs), pad_to or 0))
+        return protocol.decode_blobs(protocol.to_device([rows], self.device)[0])
 
     @staticmethod
-    def _check_ok(ok: torch.Tensor) -> None:
+    def _check_ok(ok) -> None:
+        """ok: a tensor or a read-back array of canonicality flags."""
         if not bool(ok.all()):
             raise KzgError("non-canonical field element in blob")
 
@@ -136,100 +156,180 @@ class Kzg:
         )
         return [int.from_bytes(d, "big") % host.R for d in digests]
 
-    # -- commitments and proofs ------------------------------------------------
+    # -- device programs --------------------------------------------------------
 
-    def _commit_one(self, chunk: torch.Tensor):
-        """One commit of (commit_chunk or fewer, N, 16) plain scalars: the
-        fixed-base comb, or the windowed Pippenger when comb_h = 0."""
+    def _chunks(self, n: int) -> tuple[int, range]:
+        """(size, starts) of the device programs of an n-item commit, proof
+        or validation: one program of the padded batch size up to
+        commit_chunk items, else programs of commit_chunk items (the last
+        one padded); each takes `size` items from its start."""
+        size = min(self._canon(n), self.commit_chunk)
+        return size, range(0, n, size)
+
+    def _commit_fn(self):
+        """(commit, held): protocol.commit_comb with the comb table bound
+        (built at the first commit), or protocol.commit_msm with the setup
+        points when comb_h = 0; and the tensors it reads by address."""
         h = self.config.comb_h
         if h == 0:
-            return protocol.commit_msm(self.setup.g1_points, chunk, self.config.msm_window)
-        if self._comb_table is None:
-            self._comb_table = comb.build_table(self.setup.g1_points, h)
-        return protocol.commit_comb(self._comb_table, chunk, h, self.config.n)
+            return (functools.partial(protocol.commit_msm, self.setup.g1_points,
+                                      window=self.config.msm_window), self.setup.g1_points)
+        with self._table_lock:
+            if self._comb_table is None:
+                self._comb_table = comb.build_table(self.setup.g1_points, h)
+        return (functools.partial(protocol.commit_comb, self._comb_table, h=h, n=self.config.n),
+                self._comb_table)
 
-    def _commit_elements(self, elements_plain: torch.Tensor):
-        B = elements_plain.shape[0]
-        if B <= self.commit_chunk:
-            return self._commit_one(elements_plain)
-        outs = []
-        for i in range(0, B, self.commit_chunk):
-            chunk = elements_plain[i : i + self.commit_chunk]
-            n = chunk.shape[0]
-            if n < self.commit_chunk:
-                chunk = torch.cat([chunk, chunk.new_zeros(self.commit_chunk - n, *chunk.shape[1:])])
-            outs.append(tuple(c[:n] for c in self._commit_one(chunk)))
-        return tuple(torch.cat([o[i] for o in outs]) for i in range(3))
+    def _program(self, name: str):
+        """(fn, held, graphed) of program `name`: the protocol function with
+        this setup's tensors bound, the tensors it reads by address, and
+        whether it runs as a CUDA graph (all but the windowed commit's)."""
+        if name == "verify_kzg":
+            return functools.partial(protocol.verify_kzg, tau2=self.setup.tau2), self.setup.tau2, True
+        if name == "validate_g1":
+            return protocol.validate_g1, (), True
+        commit, held = self._commit_fn()
+        graphed = self.config.comb_h > 0
+        if name == "commit":
+            return functools.partial(protocol.commit_chunk, commit=commit), held, graphed
+        setup = self.setup
+        return (functools.partial(protocol.prove_chunk, roots=setup.roots,
+                                  inv_roots=setup.inv_roots, commit=commit),
+                (setup.roots, setup.inv_roots, held), graphed)
 
-    def _evaluate_and_quotient(self, elements_plain: torch.Tensor, z_vals):
-        """(B, N, 16) plain elements and z ints -> (y ints, plain quotient)."""
-        elements_mont = protocol.fr_to_mont(elements_plain)
-        z_mont = protocol.fr_to_mont(protocol.fr_planes(z_vals, self.device))
-        y_mont = protocol.evaluate(elements_mont, z_mont, self.setup.roots)
-        q_mont = protocol.quotient(
-            elements_mont, z_mont, y_mont, self.setup.roots, self.setup.inv_roots
-        )
-        y_plain = protocol.fr_from_mont(y_mont).cpu().numpy()
-        ys = [FR.to_int(row, mont=False) for row in y_plain]
-        return ys, protocol.fr_from_mont(q_mont)
+    def _run(self, name: str, inputs):
+        """Program `name` on `inputs`: a replay of its graph in this Kzg's
+        cache on CUDA (captured at the first call of the batch size), an
+        eager call on the CPU and for the windowed commit.  The outputs are
+        not read back."""
+        fn, held, graphed = self._program(name)
+        if self._graphs is None or not graphed:
+            return fn(*inputs)
+        return self._graphs.program(name, fn, held)(inputs)
+
+    @staticmethod
+    def _read_back(tensors) -> list[np.ndarray]:
+        """Device tensors -> numpy arrays of their shapes and dtypes, in one
+        copy to the host."""
+        flat = [t.contiguous().view(torch.uint8).reshape(-1) for t in tensors]
+        raw = torch.cat(flat).cpu().numpy()
+        out, o = [], 0
+        for t, f in zip(tensors, flat):
+            dtype = np.dtype(str(t.dtype).removeprefix("torch."))
+            out.append(raw[o:o + f.numel()].view(dtype).reshape(t.shape))
+            o += f.numel()
+        return out
+
+    # -- commitments and proofs ------------------------------------------------
 
     def blob_to_kzg_commitment(self, blob: bytes) -> bytes:
         return self.blobs_to_kzg_commitments([blob])[0]
 
+    def _commit_dispatch(self, blobs):
+        """Host checks and the commit programs, one a chunk; returns the
+        (ok, commitment bytes) pair of each chunk, not yet read back."""
+        self._check_blob_lengths(blobs)
+        size, starts = self._chunks(len(blobs))
+        if not starts:
+            return []
+        (rows,) = protocol.to_device([self._blob_rows(blobs, len(starts) * size)], self.device)
+        return [self._run("commit", (rows[i:i + size],)) for i in starts]
+
     def blobs_to_kzg_commitments(self, blobs) -> list[bytes]:
         n = len(blobs)
-        elements, ok = self._decode_blobs(blobs, pad_to=self._canon(n))
-        self._check_ok(ok[:n])
-        return compress.points_to_bytes(self._commit_elements(elements))[:n]
+        outs = self._commit_dispatch(blobs)
+        if not outs:
+            return []
+        ok, raw = self._read_back([torch.cat([o[k] for o in outs])[:n] for k in range(2)])
+        self._check_ok(ok)
+        return compress.rows_to_bytes(raw)
 
     def compute_kzg_proof(self, blob: bytes, z: bytes) -> tuple[bytes, bytes]:
         (proof,), (y,) = self.compute_kzg_proofs([blob], [z])
         return proof, y
 
+    def _prove_dispatch(self, blobs, z_vals):
+        """The prove programs of blobs of checked lengths at the points
+        z_vals (ints), one a chunk; returns each chunk's (ok, y plain, proof
+        bytes), not yet read back."""
+        n = len(blobs)
+        size, starts = self._chunks(n)
+        if not starts:
+            return []
+        rows = len(starts) * size
+        blob_rows, z = protocol.to_device(
+            [self._blob_rows(blobs, rows), protocol.fr_planes_host(list(z_vals) + [0] * (rows - n))],
+            self.device)
+        return [self._run("prove", (blob_rows[i:i + size], z[i:i + size])) for i in starts]
+
     def compute_kzg_proofs(self, blobs, zs):
         """Proofs of each blob's polynomial at its point z: (proofs, ys),
-        lists of bytes."""
+        lists of bytes.  A blob's errors come before a z's, as in the JAX
+        package: a bad z is found on the host, its lane runs with z = 0,
+        and its error is raised after the blobs' canonicality is read."""
         if len(blobs) != len(zs):
             raise KzgError("length mismatch")
+        self._check_blob_lengths(blobs)
         n = len(blobs)
-        nc = self._canon(n)
-        elements, ok = self._decode_blobs(blobs, pad_to=nc)
-        self._check_ok(ok[:n])
-        z_vals = [self._fr_bytes_to_int(z) for z in zs] + [0] * (nc - n)
-        ys, q_plain = self._evaluate_and_quotient(elements, z_vals)
-        proofs = compress.points_to_bytes(self._commit_elements(q_plain))[:n]
-        return proofs, [v.to_bytes(32, "big") for v in ys[:n]]
+        z_vals, z_error = [], None
+        for z in zs:
+            try:
+                z_vals.append(self._fr_bytes_to_int(z))
+            except KzgError as e:
+                z_error = z_error or e
+                z_vals.append(0)
+        outs = self._prove_dispatch(blobs, z_vals)
+        if not outs:
+            return [], []
+        ok, y, raw = self._read_back([torch.cat([o[k] for o in outs])[:n] for k in range(3)])
+        self._check_ok(ok)
+        if z_error is not None:
+            raise z_error
+        ys = [FR.to_int(row, mont=False).to_bytes(32, "big") for row in y]
+        return compress.rows_to_bytes(raw), ys
 
     def compute_blob_kzg_proof(self, blob: bytes, commitment: bytes) -> bytes:
         return self.compute_blob_kzg_proofs([blob], [commitment])[0]
 
-    def _validate_g1_device(self, points) -> None:
-        """Full decompression of the points on the device, the subgroup
-        check by kernel K3 included; the batch pads with generator bytes."""
-        for p in points:
-            if len(p) != BYTES_PER_COMMITMENT:
-                raise KzgError("invalid point length")
+    def _validate_dispatch(self, points):
+        """The validate_g1 programs of points of checked lengths, padded
+        with generator bytes, one a chunk; returns each chunk's (3, size)
+        masks, not yet read back."""
         n = len(points)
-        joined = b"".join(bytes(p) for p in points) + _G1_GEN_BYTES * (self._canon(n) - n)
-        _, ok_enc, ok_curve, ok_sub = decompress.g1_decompress(
-            self._to_device(joined, BYTES_PER_COMMITMENT)
-        )
-        masks = torch.stack([ok_enc, ok_curve, ok_sub])[:, :n].cpu().numpy()
-        self._raise_point_masks(masks)
+        size, starts = self._chunks(n)
+        if not starts:
+            return []
+        joined = b"".join(bytes(p) for p in points) + _G1_GEN_BYTES * (len(starts) * size - n)
+        rows = self._to_device(joined, BYTES_PER_COMMITMENT)
+        return [self._run("validate_g1", (rows[i:i + size],))[0] for i in starts]
 
     def compute_blob_kzg_proofs(self, blobs, commitments) -> list[bytes]:
-        """Blob proofs: each blob's proof at its Fiat-Shamir challenge.  The
-        commitments are validated on the device before the blobs."""
+        """Blob proofs: each blob's proof at its Fiat-Shamir challenge.  As
+        in the JAX package, the commitments' lengths are checked first, then
+        their device masks are raised, and only then the blobs' lengths and
+        canonicality: a blob of the wrong length still waits for the
+        commitments' masks."""
         if len(blobs) != len(commitments):
             raise KzgError("length mismatch")
-        self._validate_g1_device(commitments)
+        for p in commitments:
+            if len(p) != BYTES_PER_COMMITMENT:
+                raise KzgError("invalid point length")
         n = len(blobs)
-        nc = self._canon(n)
-        elements, ok = self._decode_blobs(blobs, pad_to=nc)
-        self._check_ok(ok[:n])
-        z_vals = self._challenges(blobs, commitments) + [0] * (nc - n)
-        _, q_plain = self._evaluate_and_quotient(elements, z_vals)
-        return compress.points_to_bytes(self._commit_elements(q_plain))[:n]
+        masks = self._validate_dispatch(commitments)
+        try:
+            self._check_blob_lengths(blobs)
+        except KzgError:
+            if masks:
+                self._raise_point_masks(self._read_back([torch.cat(masks, 1)[:, :n]])[0])
+            raise
+        outs = self._prove_dispatch(blobs, self._challenges(blobs, commitments))
+        if not outs:
+            return []
+        m, ok, raw = self._read_back([torch.cat(masks, 1)[:, :n],
+                                      *(torch.cat([o[k] for o in outs])[:n] for k in (0, 2))])
+        self._raise_point_masks(m)
+        self._check_ok(ok)
+        return compress.rows_to_bytes(raw)
 
     # -- polynomial form conversion (the NTT, ntt.py) ----------------------------
 
@@ -267,27 +367,29 @@ class Kzg:
 
     # -- verification -------------------------------------------------------
 
-    def verify_kzg_proof(self, proof: bytes, commitment: bytes, z: bytes, y: bytes) -> bool:
-        """Single-point verification: e(proof, [tau]_2 - z G2) ==
-        e(C - y G1, G2).  The proof's errors are raised before the
-        commitment's."""
+    def _verify_kzg_dispatch(self, proof: bytes, commitment: bytes, z: bytes, y: bytes):
+        """Host checks and the verify_kzg program: (verdict, packed masks),
+        not yet read back."""
         for b in (proof, commitment):
             if len(b) != BYTES_PER_COMMITMENT:
                 raise KzgError("invalid point length")
         z_v = self._fr_bytes_to_int(z)
         y_v = self._fr_bytes_to_int(y)
-        a1, a2, b1, proof_masks, comm_masks = protocol.verify_kzg_bytes(
-            self._to_device(bytes(proof), BYTES_PER_PROOF),
-            self._to_device(bytes(commitment), BYTES_PER_COMMITMENT),
-            protocol.fr_planes([z_v], self.device),
-            protocol.fr_planes([y_v], self.device),
-            self.setup.tau2,
-        )
-        masks = torch.stack([*proof_masks, *comm_masks]).cpu().numpy()
+        staged = protocol.to_device([
+            np.frombuffer(bytes(proof), dtype=np.uint8).reshape(1, BYTES_PER_PROOF),
+            np.frombuffer(bytes(commitment), dtype=np.uint8).reshape(1, BYTES_PER_COMMITMENT),
+            protocol.fr_planes_host([z_v]), protocol.fr_planes_host([y_v]),
+        ], self.device)
+        return self._run("verify_kzg", staged)
+
+    def verify_kzg_proof(self, proof: bytes, commitment: bytes, z: bytes, y: bytes) -> bool:
+        """Single-point verification: e(proof, [tau]_2 - z G2) ==
+        e(C - y G1, G2).  The proof's errors are raised before the
+        commitment's."""
+        verdict, masks = self._read_back(self._verify_kzg_dispatch(proof, commitment, z, y))
         self._raise_point_masks(masks[:3])
         self._raise_point_masks(masks[3:])
-        return bool(protocol.pairing_check(a1, a2, b1)[0])
-
+        return bool(verdict[0])
 
     def verify_blob_kzg_proof(self, blob: bytes, commitment: bytes, proof: bytes) -> bool:
         return self.verify_blob_kzg_proof_batch([blob], [commitment], [proof])

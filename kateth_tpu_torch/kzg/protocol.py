@@ -11,13 +11,22 @@
                              G1 ladder carrying the random-linear-combination
                              lincombs and the subgroup checks
 * pairing_check           -- e(a1, a2) == e(b1, [1]_2)
-* verify_blob_batch       -- the two above: a batch's verdict and masks, the
-                             program that graphs.py captures
+* verify_blob_batch       -- the two above: a batch's verdict and masks
+* verify_kzg              -- verify_kzg_bytes, then pairing_check: one
+                             opening's verdict and masks
+* validate_g1             -- full G1 decompression masks (kernel K3's
+                             subgroup check included)
+* commit_chunk            -- decode, commit and compress a chunk of blobs
+* prove_chunk             -- decode, evaluate, quotient, commit and compress:
+                             a chunk of blobs' proofs at their points
 * to_device, fr_planes    -- host arrays to the device in one asynchronous
                              copy
 
 Special cases are masks, not control flow, and nothing here reads a tensor
-back to the host or uploads a constant more than once per device.
+back to the host or uploads a constant more than once per device.  The five
+programs verify_blob_batch, verify_kzg, validate_g1, commit_chunk and
+prove_chunk take and return tensors only: graphs.py captures each of them
+as a CUDA graph, and the CPU runs them eagerly.
 """
 
 from __future__ import annotations
@@ -25,7 +34,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..curves import comb, decompress, ops
+from ..curves import comb, compress, decompress, ops
 from ..curves import g1 as g1mod
 from ..curves import g2 as g2mod
 from ..curves import msm
@@ -214,6 +223,43 @@ def verify_blob_batch(blob_bytes, comm_bytes, proof_bytes, z_plain, zw_plain, w_
     pc_in, packed = verify_blob_batch_fused(
         blob_bytes, comm_bytes, proof_bytes, z_plain, zw_plain, w_plain, roots, tau2)
     return pairing_check(*pc_in)[0], packed
+
+
+def verify_kzg(proof_bytes, comm_bytes, z_plain, y_plain, tau2):
+    """verify_kzg_bytes, then pairing_check: (verdict (B,) bool, and the
+    (6, B) packed masks: proof encoding, curve and subgroup, then the same
+    for the commitment)."""
+    a1, a2, b1, proof_masks, comm_masks = verify_kzg_bytes(
+        proof_bytes, comm_bytes, z_plain, y_plain, tau2)
+    return pairing_check(a1, a2, b1), torch.stack([*proof_masks, *comm_masks])
+
+
+def validate_g1(point_bytes):
+    """(B, 48) uint8 -> ((3, B) bool masks: encoding, curve, subgroup,)."""
+    _, ok_enc, ok_curve, ok_sub = decompress.g1_decompress(point_bytes)
+    return (torch.stack([ok_enc, ok_curve, ok_sub]),)
+
+
+def commit_chunk(blob_bytes, commit):
+    """decode_blobs, commit, then G1 compression: (ok (B,), (B, 48) uint8
+    commitments).  `commit` maps (B, N, 16) plain scalars to projective
+    points: commit_comb or commit_msm with its table bound."""
+    elements, ok = decode_blobs(blob_bytes)
+    return ok, compress.g1_compress_planes(commit(elements))
+
+
+def prove_chunk(blob_bytes, z_plain, roots, inv_roots, commit):
+    """Each blob's proof at its point z: decode_blobs, the elements and z in
+    Montgomery form, evaluate, quotient, y and q back to plain form, the
+    commitment of q and its compression.  Returns (ok (B,), y plain
+    (B, 16), (B, 48) uint8 proofs); `commit` as for commit_chunk."""
+    elements, ok = decode_blobs(blob_bytes)
+    elements_mont = fr_to_mont(elements)
+    z_mont = fr_to_mont(z_plain)
+    y_mont = evaluate(elements_mont, z_mont, roots)
+    q_mont = quotient(elements_mont, z_mont, y_mont, roots, inv_roots)
+    y_plain, q_plain = fr_from_mont(y_mont), fr_from_mont(q_mont)
+    return ok, y_plain, compress.g1_compress_planes(commit(q_plain))
 
 
 #: the torch dtype of each numpy dtype that to_device takes

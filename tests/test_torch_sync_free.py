@@ -1,5 +1,5 @@
-"""The port's batch-verification program reads nothing back to the host and
-uploads no constant twice: the two properties that let graphs.py capture it
+"""The port's device programs read nothing back to the host and upload no
+constant twice: the two properties that let graphs.py capture each of them
 as one CUDA graph, held on the CPU.
 
 protocol.verify_blob_batch_fused and pairing_check run on one batch of the
@@ -14,8 +14,12 @@ lane) three times:
    no constant is built from host data again.
 
 Runs 2 and 3 must finish and give the first run's outputs bit for bit.
+The other four programs of graphs.py's cache, protocol.verify_kzg,
+validate_g1, commit_chunk and prove_chunk (with the comb commit bound as
+Kzg._program binds it, over a table of random rows), go through the same
+three runs on inputs of the same setup.
 
-On a CUDA device the wrappers of K2-K5 are one kernel launch each, which
+On a CUDA device the wrappers of K2-K8 are one kernel launch each, which
 reads nothing back.  Their plain versions, which only the CPU runs, repeat
 the kernels' arithmetic over thousands of steps (about 9 s of the 9.5 s of
 a plain run on the CPU), so in these runs stand-ins take their place: each
@@ -38,6 +42,7 @@ from kateth_tpu.kzg import KzgConfig as JaxKzgConfig
 from kateth_tpu.oracle import field as of
 from kateth_tpu.oracle.kzg import OracleSetup, blob_to_bytes
 from kateth_tpu_torch import cuda_pairing
+from kateth_tpu_torch.curves import cuda_msm
 from kateth_tpu_torch.fields import cuda_mont
 from kateth_tpu_torch.fields import limbs as L
 from kateth_tpu_torch.fields.specs import FP, FR
@@ -88,14 +93,31 @@ def hard_part_stand_in(f):
     return L.add(FP, f, f)
 
 
+def g2_ladder_stand_in(point, scalar_digits):
+    batch = torch.broadcast_shapes(scalar_digits.shape[:-1], *(c.shape[:-2] for c in point))
+    s = torch.cat([scalar_digits, scalar_digits[..., :8]], -1)[..., None, :]
+    return tuple(L.add(FP, c.expand(*batch, 2, FP.n_digits), s.expand(*batch, 2, FP.n_digits))
+                 for c in point)
+
+
+def comb_chain_stand_in(x, y, flags, g=cuda_msm.COMB_CHAIN):
+    """The first row of each chain of g rows, mixed with its y and flag."""
+    x0, y0 = (c.reshape(*c.shape[:-2], -1, g, FP.n_digits)[..., 0, :] for c in (x, y))
+    f0 = flags.reshape(*flags.shape[:-1], -1, g)[..., :1].bool()
+    return L.add(FP, x0, y0), L.add(FP, y0, y0), torch.where(f0, x0, y0)
+
+
 @pytest.fixture(scope="module")
 def stand_ins():
-    """K2-K5's wrappers replaced by cheap stand-ins for the module's tests."""
+    """K2-K8's wrappers (K7 is on no program here) replaced by cheap
+    stand-ins for the module's tests."""
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(cuda_mont, "pow_const", pow_stand_in)
         mp.setattr(cuda_mont, "g1_scalar_mul", ladder_stand_in)
         mp.setattr(cuda_pairing, "miller_loop_affine", miller_stand_in)
         mp.setattr(cuda_pairing, "hard_part", hard_part_stand_in)
+        mp.setattr(cuda_pairing, "g2_scalar_mul", g2_ladder_stand_in)
+        mp.setattr(cuda_msm, "comb_chain_sum", comb_chain_stand_in)
         yield
 
 
@@ -178,5 +200,85 @@ def test_constants_are_made_once(batch, monkeypatch):
     for name in ("as_tensor", "tensor", "from_numpy"):
         monkeypatch.setattr(torch, name, refuse)
     got = run(args)
+    monkeypatch.undo()
+    assert_same(got, want)
+
+
+# --- single-point verify, validation, commit and prove -----------------------
+
+PROGRAMS = ("verify_kzg", "validate_g1", "commit", "prove")
+
+
+@pytest.fixture(scope="module")
+def programs(stand_ins):
+    """Each program's bound function (Kzg._program), its inputs on a setup
+    of n = 8 with a batch quantum of 4 and comb_h = 4, and its outputs
+    from a plain run.  The comb table is random rows: the values do not
+    matter here, only that each run gives the same ones."""
+    rng = random.Random(0x9A7B)
+    osetup = OracleSetup.generate_insecure(N, g2_len=2)
+    jax_setup = DeviceSetup.from_oracle(osetup, JaxKzgConfig(n=N, g2_len=2))
+    arrays = [np.asarray(getattr(jax_setup, k)) for k in FIELDS]
+    cfg = KzgConfig(n=N, g2_len=2, canon_batch=4, comb_h=4)
+    kzg = Kzg(TorchSetup.from_arrays(arrays, cfg, "cpu"))
+    gen = np.random.default_rng(0x9A7B)
+    kzg._comb_table = tuple(torch.as_tensor(gen.integers(0, 1 << 16, (N << 4, FP.n_digits)))
+                            for _ in range(2))
+    blobs = [blob_to_bytes([rng.randrange(of.R) for _ in range(N)]) for _ in range(3)]
+    cms = [osetup.blob_to_commitment(b) for b in blobs]
+    z = of.fr_to_be_bytes(rng.randrange(of.R))
+    proof, y = osetup.proof(blobs[0], z)
+
+    def rows(data: bytes, width: int):
+        return np.frombuffer(data, dtype=np.uint8).reshape(-1, width)
+
+    blob_rows = rows(b"".join(blobs) + bytes(32 * N), 32 * N)
+    z_vals = [int.from_bytes(z, "big"), rng.randrange(of.R), 0, 0]
+    inputs = {
+        "verify_kzg": protocol.to_device([
+            rows(proof, 48), rows(cms[0], 48), protocol.fr_planes_host([z_vals[0]]),
+            protocol.fr_planes_host([int.from_bytes(y, "big")])], "cpu"),
+        "validate_g1": protocol.to_device([rows(b"".join(cms) + cms[0], 48)], "cpu"),
+        "commit": protocol.to_device([blob_rows], "cpu"),
+        "prove": protocol.to_device([blob_rows, protocol.fr_planes_host(z_vals)], "cpu"),
+    }
+    out = {}
+    for name in PROGRAMS:
+        fn = kzg._program(name)[0]
+        out[name] = fn, inputs[name], list(fn(*inputs[name]))
+    return out
+
+
+def test_program_plain_run_shapes(programs):
+    shapes = {name: [(tuple(t.shape), t.dtype) for t in want]
+              for name, (_, _, want) in programs.items()}
+    assert shapes == {
+        "verify_kzg": [((1,), torch.bool), ((6, 1), torch.bool)],
+        "validate_g1": [((3, 4), torch.bool)],
+        "commit": [((4,), torch.bool), ((4, 48), torch.uint8)],
+        "prove": [((4,), torch.bool), ((4, 16), torch.int64), ((4, 48), torch.uint8)],
+    }
+    assert bool(programs["commit"][2][0].all()) and bool(programs["prove"][2][0].all())
+    assert bool(programs["verify_kzg"][2][1][[0, 3]].all())  # encodings
+
+
+@pytest.mark.parametrize("name", PROGRAMS)
+def test_program_no_host_reads(programs, name):
+    fn, inputs, want = programs[name]
+    with NoHostReads():
+        got = list(fn(*inputs))
+    assert_same(got, want)
+
+
+@pytest.mark.parametrize("name", PROGRAMS)
+def test_program_constants_are_made_once(programs, name, monkeypatch):
+    fn, inputs, want = programs[name]
+
+    def refuse(*_, **__):
+        raise AssertionError("a constant was built from host data again")
+
+    for attr in ("as_tensor", "tensor", "from_numpy"):
+        monkeypatch.setattr(torch, attr, refuse)
+    got = list(fn(*inputs))
     monkeypatch.undo()
     assert_same(got, want)

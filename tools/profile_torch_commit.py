@@ -9,16 +9,23 @@ host clock between two syncs, summed over the loop it sits in:
      memory), then one commit by its stages: the row gather of all 22
      columns, kernel K8's one launch, the halving sum of every column's
      chain totals, and the 22 doublings and additions that combine the
-     columns; then blobs_to_kzg_commitments by stage (blob
-     decode, commit, compression and read-back) and compute_kzg_proofs'
-     evaluation and quotient;
+     columns; then a commit's pieces run eagerly, by stage (blob
+     decode, commit, compression and read-back; the library runs them as
+     one CUDA graph) and compute_kzg_proofs' evaluation and quotient;
   2. the windowed Pippenger (comb_h = 0): one commit by its windows: the
      stable argsort and gather, kernel K7 alone, the rest of the two-level
      scan, the bucket-boundary gather, the halving sum, the (2^c - 1)
      total, and the window sum with the doublings and addition between
      windows;
-  3. one traced comb commit (torch.profiler): device busy share and
-     launches.
+  3. one traced eager comb commit (torch.profiler): device busy share and
+     launches;
+  4. the device time of each stage of one eager 64-blob commit (decode,
+     columns and gather, K8, halving sum, doublings and additions,
+     compression), each stage traced alone after a warm-up and its
+     kernels' durations summed: the device work a replay of the library's
+     commit graph runs; and one traced library commit after a warm-up (a
+     graph replay where the tree has one): its device busy time and
+     operations.
 Both replays are checked against the library's own commit.  Prints one
 JSON object with the card's name and power limit.
 
@@ -38,6 +45,7 @@ sys.path.insert(0, ROOT)
 
 
 def main() -> int:
+    import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -82,7 +90,7 @@ def main() -> int:
 
     h, n = cfg.comb_h, cfg.n
     d = comb.comb_dims(h)
-    cols = comb.column_digits(elements, h, d)  # (d, 64, n)
+    cols = comb.column_digits(elements, h, d).contiguous()  # (d, 64, n)
     idx = cols + (torch.arange(n, device=dev) << h)
     ms = {}
     (x, y, fl), ms["gather"] = timed(lambda: (table[0][idx], table[1][idx], cols != 0))
@@ -100,7 +108,7 @@ def main() -> int:
     out["comb_commit_ms_by_stage"] = ms
 
     (elements, ok), decode_ms = timed(lambda: kzg._decode_blobs(blobs))
-    pt, commit_ms = timed(lambda: kzg._commit_elements(elements))
+    pt, commit_ms = timed(lambda: protocol.commit_comb(table, elements, cfg.comb_h, cfg.n))
     got, compress_ms = timed(lambda: compress.points_to_bytes(pt))
     assert got == [case["output"]] * 64
     z = protocol.fr_to_mont(protocol.fr_planes([12345] * 64, dev))
@@ -162,7 +170,7 @@ def main() -> int:
 
     # 3. one traced comb commit
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, traced_ms = timed(lambda: kzg._commit_elements(elements))
+        _, traced_ms = timed(lambda: protocol.commit_comb(table, elements, cfg.comb_h, cfg.n))
     busy_ms, launches = 0.0, 0
     for ev in prof.events():
         if ev.device_type == torch.autograd.DeviceType.CUDA:
@@ -171,6 +179,53 @@ def main() -> int:
     out["traced_comb_commit"] = {"ms": traced_ms, "device_busy_ms": busy_ms,
                                  "device_busy_share": busy_ms / traced_ms,
                                  "device_operations": launches}
+
+    # 4. device time by stage of one eager commit, each stage alone under
+    # torch.profiler (its kernels' summed durations: the device work a
+    # replay of the library's commit graph runs), and one traced library
+    # commit after a warm-up (a graph replay where the tree has one)
+    def device_ms(fn):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            result = fn()
+            torch.cuda.synchronize()
+        evs = [ev.time_range.elapsed_us() / 1e3 for ev in prof.events()
+               if ev.device_type == torch.autograd.DeviceType.CUDA]
+        return result, {"ms": sum(evs), "operations": len(evs)}
+
+    rows = protocol.to_device([np.frombuffer(b"".join(blobs), dtype=np.uint8).reshape(64, -1)], dev)[0]
+    stages = {}
+    (el, _), stages["decode"] = device_ms(lambda: protocol.decode_blobs(rows))
+
+    def columns_and_gather():
+        cols = comb.column_digits(el, h, d).contiguous()
+        idx = cols + (torch.arange(n, device=dev) << h)
+        return table[0][idx], table[1][idx], cols != 0
+
+    (x, y, fl), stages["columns_and_gather"] = device_ms(columns_and_gather)
+    chains, stages["comb_chain_sum"] = device_ms(lambda: cuda_msm.comb_chain_sum(x, y, fl))
+    sums, stages["halving_sum"] = device_ms(lambda: msm.halving_sum(F1, chains, axis=2))
+    def double_add():
+        a = ops.identity(F1, (64,), dev)
+        for t in range(d - 1, -1, -1):
+            a = ops.padd(F1, ops.pdouble(F1, a), tuple(c[t] for c in sums))
+        return a
+
+    acc, stages["double_add"] = device_ms(double_add)
+    got, stages["compress"] = device_ms(lambda: compress.g1_compress_planes(acc))
+    assert compress.rows_to_bytes(got.cpu().numpy()) == [case["output"]] * 64
+    assert kzg.blobs_to_kzg_commitments(blobs) == [case["output"]] * 64  # the capture, if any
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, library_ms = timed(lambda: kzg.blobs_to_kzg_commitments(blobs))
+    busy = [ev.time_range.elapsed_us() / 1e3 for ev in prof.events()
+            if ev.device_type == torch.autograd.DeviceType.CUDA]
+    out["commit_device_ms_by_stage"] = {"stages": stages,
+                                        "sum_ms": sum(v["ms"] for v in stages.values()),
+                                        "library_traced_ms": library_ms,
+                                        "library_device_busy_ms": sum(busy),
+                                        "library_device_operations": len(busy)}
     print(json.dumps(out, indent=1))
     return 0
 

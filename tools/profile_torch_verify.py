@@ -18,11 +18,15 @@ CUDA graph where the tree has one), then
      wall time, and the device time by kernel;
   4. times streaming through `verify_blob_kzg_proof_batches`, 8 batches of
      64 blobs, `--reps` times (proofs/s: median, min, max);
-  5. times the eager paths that share the field arithmetic: a
+  5. times the other paths that share the field arithmetic: a
      single-point `verify_kzg_proof` (median of 20 after a warm-up), a
-     64-blob `blobs_to_kzg_commitments` on the comb (the table build apart;
-     median of 3) and the device decode of the setup's 65 G2 points
-     (`decompress.g2_decompress`, median of 3 after a warm-up);
+     64-blob `blobs_to_kzg_commitments` on the comb (the table build and
+     the first commit apart; median of --reps), a 64-blob
+     `compute_blob_kzg_proofs` (median of --reps after a warm-up) and the
+     device decode of the setup's 65 G2 points (`decompress.g2_decompress`,
+     eager in every tree; median of 3 after a warm-up).  The first three
+     are graph replays where the tree captures them, eager calls where it
+     does not;
   6. times one call of `limbs.add`, `limbs.sub` and `limbs.mont_mul` (K1)
      on (65, 2, 24) Fp planes, the G2 decode's shape, over 2,000
      unsynchronised calls after 100: the host cost of a plain operation
@@ -280,11 +284,22 @@ def main() -> int:
     blobs = [blob_case["input"]["blob"]] * 64
     first, first_ms = timed(lambda: kzg.blobs_to_kzg_commitments(blobs[:1]))  # builds the table
     assert first == [blob_case["output"]]
+    assert kzg.blobs_to_kzg_commitments(blobs) == [blob_case["output"]] * 64  # the capture
     commit_ms = []
-    for _ in range(3):
+    for _ in range(args.reps):
         out, ms = timed(lambda: kzg.blobs_to_kzg_commitments(blobs))
         assert out == [blob_case["output"]] * 64
         commit_ms.append(ms)
+
+    proof_case = chip_smoke.parse_vector(os.path.join(
+        chip_smoke.VECTORS, "compute_blob_kzg_proof", "valid_0", "data.yaml"))
+    p_blobs = [proof_case["input"]["blob"]] * 64
+    p_comms = [proof_case["input"]["commitment"]] * 64
+    blob_proofs_ms = []
+    for _ in range(args.reps + 1):
+        out, ms = timed(lambda: kzg.compute_blob_kzg_proofs(p_blobs, p_comms))
+        assert out == [proof_case["output"]] * 64
+        blob_proofs_ms.append(ms)
 
     with open(DEFAULT_TRUSTED_SETUP) as f:
         encs = [bytes.fromhex(h[2:]) for h in json.load(f)["g2_monomial"]]
@@ -313,6 +328,7 @@ def main() -> int:
     print(json.dumps({
         "tree": tree, "device": smi,
         "graphs": hasattr(kzg, "_verify_graphs"),
+        "path_graphs": hasattr(kzg, "_graphs"),
         "stage_ms": {"host_prefix": stage_ms, "fused": fused_ms, "pairing_check": pairing_ms},
         "dispatch_host_syncs": len(sync_warnings),
         "dispatch_sync_warnings": sorted(set(sync_warnings)),
@@ -324,6 +340,8 @@ def main() -> int:
                                    "min": min(single_ms[1:]), "max": max(single_ms[1:])},
         "comb_commit_64_ms": {"median": statistics.median(commit_ms), "runs": commit_ms,
                               "first_commit_with_table_build_ms": first_ms},
+        "blob_proofs_64_ms": {"median": statistics.median(blob_proofs_ms[1:]),
+                              "runs": blob_proofs_ms[1:]},
         "g2_decode_65_ms": {"median": statistics.median(g2_ms[1:]), "runs": g2_ms[1:]},
         "fp2_plane_call_us": call_us,
     }, indent=1))
