@@ -70,8 +70,19 @@ Phases, one line each; any failure exits non-zero before the last line:
    one verifying a valid and a wrong batch; and graph against eager times,
    six runs each in turns, of a single-point verify, a 64-blob commit and a
    64-blob compute_blob_kzg_proofs;
-   - commit with the windowed Pippenger (comb_h = 0): every
-     blob_to_kzg_commitment vector;
+   - commit and prove with the windowed Pippenger (comb_h = 0), on a
+     second Kzg with a graph cache of its own: every blob_to_kzg_commitment,
+     compute_kzg_proof and compute_blob_kzg_proof vector through its
+     commit, prove and validate_g1 graphs (the commit and prove scans: a
+     head, a step replayed once a window, a tail; their replays must rise);
+   then, apart from the paths' counts: the windowed commit and prove
+   graphs' outputs held bit for bit against an eager twin on a valid
+   64-blob commit, valid 64-blob blob proofs, a non-canonical blob element
+   and a bad z, each dispatch under sync debug mode "error" and each case
+   through the public API; a 64-blob commit's replays launching what the
+   eager call launches, K7 32 times; each capture's graph nodes and pool;
+   and graph against eager times, three runs each in turns, of a 64-blob
+   commit and a 64-blob compute_blob_kzg_proofs;
    - form conversion: 64 mainnet blobs (the valid blob_to_kzg_commitment
      vectors' blobs, repeated) through blobs_to_coefficients and back
      through coefficients_to_blobs, which must give the same bytes; two
@@ -556,7 +567,7 @@ PATH_KERNELS = {
     "batch verify": ("mont_mul", "pow_chain", "g1_ladder", "miller", "hard_part"),
     "single-point verify": ("mont_mul", "pow_chain", "g1_ladder", "miller", "hard_part", "g2_ladder"),
     "commit and prove (comb_h = 12)": ("mont_mul", "pow_chain", "g1_ladder", "comb_chain_sum"),
-    "commit (comb_h = 0)": ("prefix_scan",),
+    "commit and prove (comb_h = 0)": ("mont_mul", "pow_chain", "g1_ladder", "prefix_scan"),
     "form conversion": ("mont_mul",),
     "setup load (uncached)": ("mont_mul", "pow_chain", "g1_ladder", "g2_ladder"),
     "sharding (world of 1)": ("mont_mul", "prefix_scan", "comb_chain_sum"),
@@ -952,6 +963,116 @@ def path_graphs_against_eager(kzg, batch, smi: str) -> None:
             f"{max(times['eager']):.3f}), 6 runs each in turns [{smi}]")
 
 
+def windowed_graphs_against_eager(kzg, smi: str) -> None:
+    """The windowed commit and proof graphs (comb_h = 0: a head, a step
+    replayed once a window, a tail) against the same programs run eagerly
+    by an eager twin of the Kzg: their outputs bit for bit on a valid
+    64-blob commit, valid 64-blob blob proofs, a non-canonical blob element
+    and a bad z, each dispatch under torch.cuda.set_sync_debug_mode("error")
+    and each case also through the public API (its result or KzgError); a
+    commit's replays launching what an eager call launches (K7 once a
+    window); the step graph's nodes and every capture's pool; graph against
+    eager times in turns.  Its launches are no path's."""
+    from kateth_tpu_torch import cuda_lib, host
+    from kateth_tpu_torch.kzg import KzgError
+
+    eager = eager_twin(kzg)
+    case = parse_vector(os.path.join(VECTORS, "compute_blob_kzg_proof", "valid_0", "data.yaml"))
+    blob, blob_comm, blob_proof = case["input"]["blob"], case["input"]["commitment"], case["output"]
+    blobs, comms = [blob] * 64, [blob_comm] * 64
+    case = parse_vector(os.path.join(VECTORS, "compute_kzg_proof", "valid_0", "data.yaml"))
+    p_blobs, p_z = [case["input"]["blob"]] * 64, case["input"]["z"]
+    z_int = int.from_bytes(p_z, "big")
+    bad_blobs = list(blobs)
+    bad_blobs[9] = b"\xff" * 32 + blob[32:]
+    bad_zs = [p_z] * 64
+    bad_zs[5] = host.R.to_bytes(32, "big")
+
+    # (name, program, dispatch of a Kzg, public call of the Kzg, expected result or message)
+    cases = [
+        ("64 valid blobs", "commit", lambda k: k._commit_dispatch(blobs),
+         lambda k: k.blobs_to_kzg_commitments(blobs), [blob_comm] * 64),
+        ("64 blob proofs", "prove", lambda k: k._prove_dispatch(blobs, k._challenges(blobs, comms)),
+         lambda k: k.compute_blob_kzg_proofs(blobs, comms), [blob_proof] * 64),
+        ("non-canonical blob element", "commit", lambda k: k._commit_dispatch(bad_blobs),
+         lambda k: k.blobs_to_kzg_commitments(bad_blobs), "non-canonical field element in blob"),
+        ("bad z", "prove", lambda k: k._prove_dispatch(p_blobs, [z_int] * 5 + [0] + [z_int] * 58),
+         lambda k: k.compute_kzg_proofs(p_blobs, bad_zs), "non-canonical field element"),
+    ]
+    for name, program, dispatch, call, want in cases:
+        scan = kzg._graphs.programs[program].graphs[64]
+        replays = scan.replays
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = dispatch(kzg)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        if scan.replays == replays:
+            raise AssertionError(f"windowed graphs: the {name} case did not replay {program}")
+        got, ref = flat_tensors(got), flat_tensors(dispatch(eager))
+        if len(got) != len(ref) or not all(
+                g.dtype == r.dtype and torch.equal(g, r) for g, r in zip(got, ref)):
+            raise AssertionError(f"windowed graphs: the {name} case's {program} outputs differ "
+                                 "from eager")
+        try:
+            result = call(kzg)
+        except KzgError as e:
+            result = str(e)
+        if result != want:
+            raise AssertionError(f"windowed graphs: the {name} case gave {result!r}, expected {want!r}")
+    log(f"windowed graphs: commit and prove outputs equal to the eager programs' bit for bit in "
+        f"{len(cases)} cases ({', '.join(c[0] for c in cases)}), each dispatch with no host sync "
+        f"(sync debug mode \"error\"); the public API gives each case's result or KzgError")
+
+    counts = {}
+    for mode, k in (("eager", eager), ("graph", kzg)):
+        torch.cuda.synchronize()
+        cuda_lib.reset_launch_counts()
+        k._commit_dispatch(blobs)
+        torch.cuda.synchronize()
+        counts[mode] = cuda_lib.launch_counts()
+    if counts["graph"] != counts["eager"]:
+        raise AssertionError(f"windowed graphs: a commit's replays count {counts['graph']}, "
+                             f"the eager call {counts['eager']}")
+    if counts["graph"]["launches"]["prefix_scan"] != 32:
+        raise AssertionError(f"windowed graphs: a 64-blob commit launched K7 "
+                             f"{counts['graph']['launches']['prefix_scan']} times, not 32")
+    log(f"windowed graphs: a 64-blob commit's replays count the eager call's launches: "
+        f"{counts['eager']['launches']}; mont_mul by lanes {counts['eager']['mont_mul_lanes']}")
+
+    for name in ("commit", "prove"):
+        scan = kzg._graphs.programs[name].graphs[64]
+        for part in ("head", "step", "tail"):
+            g = getattr(scan, part)
+            log(f"pool (comb_h = 0): {name} {part} at 64: {g.nodes} graph nodes, a replay "
+                f"launches {g.launches['launches']}; {g.pool_bytes} bytes allocated, "
+                f"{g.pool_reserved_bytes} bytes newly reserved [{smi}]")
+
+    ops = {
+        "64-blob blobs_to_kzg_commitments": (lambda k: k.blobs_to_kzg_commitments(blobs),
+                                             [blob_comm] * 64),
+        "64-blob compute_blob_kzg_proofs": (lambda k: k.compute_blob_kzg_proofs(blobs, comms),
+                                            [blob_proof] * 64),
+    }
+    for op, (fn, want) in ops.items():
+        times = {"graph": [], "eager": []}
+        for order in (("eager", "graph"), ("graph", "eager"), ("eager", "graph")):
+            for mode in order:
+                k = kzg if mode == "graph" else eager
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got = fn(k)
+                times[mode].append((time.perf_counter() - t0) * 1e3)
+                if got != want:
+                    raise AssertionError(f"windowed graphs: {mode} {op} gave a wrong result")
+        log(f"windowed graphs: {op} (comb_h = 0): graph median "
+            f"{statistics.median(times['graph']):.3f} ms (runs {min(times['graph']):.3f}-"
+            f"{max(times['graph']):.3f}), eager median {statistics.median(times['eager']):.3f} ms "
+            f"(runs {min(times['eager']):.3f}-{max(times['eager']):.3f}), 3 runs each in turns "
+            f"[{smi}]")
+
+
 def main_path(dev, smi: str) -> tuple[dict, dict]:
     """Each path of the port through its public entry points at mainnet
     width; returns the launches per kernel summed over the paths, and
@@ -1064,10 +1185,27 @@ def main_path(dev, smi: str) -> tuple[dict, dict]:
                 f"{graph.pool_reserved_bytes} bytes newly reserved; a replay launches "
                 f"{graph.launches['launches']} [{smi}]")
 
-    def commit_msm():
+    def commit_prove_msm():
         base = holder["kzg"]
-        kzg = Kzg(replace(base.setup, config=replace(base.config, comb_h=0)))
-        run_vectors("blob_to_kzg_commitment", lambda i: kzg.blob_to_kzg_commitment(i["blob"]))
+        kzg = holder["kzg_msm"] = Kzg(replace(base.setup, config=replace(base.config, comb_h=0)))
+        programs = kzg._graphs.programs
+        for op, call, names in (
+                ("blob_to_kzg_commitment", lambda i: kzg.blob_to_kzg_commitment(i["blob"]), ("commit",)),
+                ("compute_kzg_proof", lambda i: kzg.compute_kzg_proof(i["blob"], i["z"]), ("prove",)),
+                ("compute_blob_kzg_proof",
+                 lambda i: kzg.compute_blob_kzg_proof(i["blob"], i["commitment"]),
+                 ("validate_g1", "prove"))):
+            before = {k: programs[k].graphs[64].replays if k in programs else 0 for k in names}
+            run_vectors(op, call)
+            after = {k: programs[k].graphs[64].replays for k in names}
+            if any(after[k] <= before[k] for k in names):
+                raise AssertionError(f"{op} (comb_h = 0): the vectors did not replay the graphs {names}")
+            log(f"graph (comb_h = 0): {op} vectors replayed " + ", ".join(
+                f"{k} {after[k] - before[k]} times" for k in names))
+        for name in ("commit", "prove"):
+            scan = programs[name].graphs[64]
+            log(f"graph (comb_h = 0): {name} captured at 64 blobs as a head, a step replayed "
+                f"{scan.length} times a call and a tail; a call launches {scan.launches['launches']}")
 
     drive("batch verify", batch_verify, totals, k1_buckets)
     graph_against_eager(holder["kzg"], holder["batch"], smi)
@@ -1206,7 +1344,8 @@ def main_path(dev, smi: str) -> tuple[dict, dict]:
             f"sharded_commit_comb of 64 blobs {t_comb:.3f} s, all equal to the single-device "
             f"results [{smi}]")
 
-    drive("commit (comb_h = 0)", commit_msm, totals, k1_buckets)
+    drive("commit and prove (comb_h = 0)", commit_prove_msm, totals, k1_buckets)
+    windowed_graphs_against_eager(holder["kzg_msm"], smi)
     for path, fn in (("form conversion", form_conversion), ("setup load (uncached)", setup_load),
                      ("sharding (world of 1)", sharding)):
         t0 = time.perf_counter()

@@ -90,6 +90,24 @@ def count_mont_mul_lanes(lanes: int) -> None:
     MONT_MUL_LAUNCHES["<=1024" if lanes <= 1024 else "<=65536" if lanes <= 65536 else ">65536"] += 1
 
 
+@functools.cache
+def _libcuda() -> ctypes.CDLL:
+    lib = ctypes.CDLL("libcuda.so.1")
+    lib.cuGraphGetNodes.argtypes = [_P, _P, ctypes.POINTER(ctypes.c_size_t)]
+    lib.cuGraphGetNodes.restype = _I
+    return lib
+
+
+def graph_nodes(raw_graph: int) -> int:
+    """The number of nodes of a captured CUDA graph (a cudaGraph_t, as
+    torch.cuda.CUDAGraph.raw_cuda_graph() gives it), from libcuda."""
+    n = ctypes.c_size_t(0)
+    rc = _libcuda().cuGraphGetNodes(raw_graph, None, ctypes.byref(n))
+    if rc != 0:
+        raise RuntimeError(f"cuGraphGetNodes failed: CUresult {rc}")
+    return n.value
+
+
 def source_hash() -> str:
     """Hash of what nvcc reads: the .cu and .cuh files of csrc/."""
     h = hashlib.sha256()

@@ -123,22 +123,45 @@ def _window_sum(points, dig: torch.Tensor, c: int):
     return ops.padd(F, scalar_mul_const(F, total, B - 1), ops.pneg(F, gsum))
 
 
+def pad_points(points):
+    """The setup points padded with identities to a power of two, the
+    length every window of msm sorts and scans (the same tuple when it is
+    one already)."""
+    return _pad_pot(ops.FP_FIELD, points, 0)
+
+
+def window_start(scalar_digits: torch.Tensor, n_points: int, c: int):
+    """The carry and the inputs of msm's window loop: the identity
+    accumulator, a projective tuple of (*batch, 24), and the window digits
+    of the PLAIN Fr digits (*batch, N, 16), most significant window first,
+    (W, *batch, n_points), zero for the n_points - N padding points."""
+    digits = window_digits(scalar_digits, c)  # (W, *batch, N), LSB window first
+    digits = torch.nn.functional.pad(digits, (0, n_points - scalar_digits.shape[-2]))
+    return ops.identity(ops.FP_FIELD, scalar_digits.shape[:-2], digits.device), digits.flip(0)
+
+
+def window_step(points, acc, dig: torch.Tensor, c: int):
+    """One window of msm, the step of its loop: c doublings of the
+    accumulator acc, then the window's bucket sum added.  points: the
+    padded setup points (pad_points); dig: the window's digits
+    (*batch, n_points)."""
+    F = ops.FP_FIELD
+    for _ in range(c):
+        acc = ops.pdouble(F, acc)
+    return ops.padd(F, acc, _window_sum(points, dig, c))
+
+
 def msm(points, scalar_digits: torch.Tensor, c: int = 8):
     """sum_i scalars[..., i] points[i] over G1, batched over the leading
     scalar dims.
 
     points: projective tuple of (N, 24), shared by the batch (the setup
     table); scalar_digits: PLAIN Fr digits (*batch, N, 16).  Returns a
-    projective tuple of (*batch, 24).  One window at a time, MSB first."""
-    F = ops.FP_FIELD
-    N = points[0].shape[0]
-    batch = scalar_digits.shape[:-2]
-    points = _pad_pot(F, points, 0)  # identity points with zero digits
-    digits = window_digits(scalar_digits, c)  # (W, *batch, N)
-    digits = torch.nn.functional.pad(digits, (0, points[0].shape[0] - N))
-    acc = ops.identity(F, batch, digits.device)
-    for w in range(digits.shape[0] - 1, -1, -1):
-        for _ in range(c):
-            acc = ops.pdouble(F, acc)
-        acc = ops.padd(F, acc, _window_sum(points, digits[w], c))
+    projective tuple of (*batch, 24).  One window at a time, MSB first: the
+    loop of the JAX package's lax.scan, whose carry and inputs
+    window_start gives and whose step is window_step."""
+    points = pad_points(points)  # identity points with zero digits
+    acc, digits = window_start(scalar_digits, points[0].shape[0], c)
+    for dig in digits:
+        acc = window_step(points, acc, dig, c)
     return acc

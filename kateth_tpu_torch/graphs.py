@@ -1,8 +1,8 @@
 """The port's device programs as captured CUDA graphs: its counterpart of the
 JAX package's `@jax.jit` programs (kateth_tpu/kzg/protocol.py: batch verify
 at :279 with pairing_check at :201, verify_kzg_bytes at :218, commit_comb at
-:169, evaluate, quotient and the form conversions at :77, :127, :370 and
-:375; kateth_tpu/curves/compress.py:41 and :68).
+:169, commit_msm at :160, evaluate, quotient and the form conversions at
+:77, :127, :370 and :375; kateth_tpu/curves/compress.py:41 and :68).
 
 Each program of kzg/protocol.py that a Kzg runs on the card (batch verify,
 single-point verify, the comb commit, the proof and the point validation)
@@ -11,6 +11,16 @@ in it reads a tensor back to the host, every constant it uses is already on
 the device, and its kernels launch on the current stream.  So each is
 captured once per (Kzg, program, batch size) and replayed for every call of
 that size.  A replay is one host call that enqueues the whole program.
+
+The windowed commit and proof (comb_h = 0) are protocol.Scan programs, as
+the JAX package runs commit_msm: one compiled window step looped by
+lax.scan (kateth_tpu/curves/msm.py:254-266).  A ScanGraphs captures the
+Scan's head, its step and its tail as three graphs and replays the step
+once a window, so a graph holds one window's operations and the pool one
+window's working set, not all W windows'.  Between step replays, copies
+on the cache's stream move the step's output carry into its static input
+and the next window's digits into its static x; nothing reads back to the
+host.
 
 A `GraphCache` holds every graph of one Kzg: one lock, one stream and one
 memory pool for all its programs.  A replay reads its graph's static input
@@ -50,8 +60,8 @@ class CapturedBatch:
     cuda_lib.launch_counts() difference), the device memory its capture
     took from the caching allocator (`pool_bytes` left allocated: the
     outputs, the pool's other blocks being free between replays; and
-    `pool_reserved_bytes` newly reserved for the shared pool), and the
-    number of replays so far."""
+    `pool_reserved_bytes` newly reserved for the shared pool), the number
+    of replays so far and the graph's number of nodes."""
 
     graph: torch.cuda.CUDAGraph
     inputs: list
@@ -60,6 +70,68 @@ class CapturedBatch:
     pool_bytes: int
     pool_reserved_bytes: int
     replays: int = 0
+    nodes: int = 0
+
+    def replay(self) -> None:
+        self.graph.replay()
+        self.replays += 1
+
+
+@dataclass
+class CapturedScan:
+    """One captured protocol.Scan at one batch size: the head's graph
+    (outputs: the carry's tensors, xs, then the extras), the step's
+    (inputs: the carry's static tensors, then the static x; outputs: the
+    next carry) and the tail's (inputs: the carry's static tensors, then
+    the head's extras).  `inputs` and `outputs` are the program's."""
+
+    head: CapturedBatch
+    step: CapturedBatch
+    tail: CapturedBatch
+    replays: int = 0
+
+    @property
+    def inputs(self) -> list:
+        return self.head.inputs
+
+    @property
+    def outputs(self) -> tuple:
+        return self.tail.outputs
+
+    @property
+    def length(self) -> int:
+        """The number of step replays a call: xs's leading size."""
+        return self.head.outputs[len(self.step.outputs)].shape[0]
+
+    @property
+    def launches(self) -> dict:
+        """The launches of one call: the head's, `length` times the
+        step's and the tail's."""
+        out = {}
+        for part, times in ((self.head, 1), (self.step, self.length), (self.tail, 1)):
+            for kind, counts in part.launches.items():
+                for name, v in counts.items():
+                    out.setdefault(kind, {})[name] = out.get(kind, {}).get(name, 0) + times * v
+        return out
+
+    def replay(self) -> None:
+        """The head, then a step a window, then the tail, all on the
+        current stream: before each step the carry and that window's x are
+        copied into the step's static inputs."""
+        k = len(self.step.outputs)
+        carry, xs = self.head.outputs[:k], self.head.outputs[k]
+        statics, x = self.step.inputs[:k], self.step.inputs[k]
+        self.head.replay()
+        for w in range(xs.shape[0]):
+            for static, c in zip(statics, carry):
+                static.copy_(c, non_blocking=True)
+            x.copy_(xs[w], non_blocking=True)
+            self.step.replay()
+            carry = self.step.outputs
+        for static, c in zip(statics, carry):
+            static.copy_(c, non_blocking=True)
+        self.tail.replay()
+        self.replays += 1
 
 
 class GraphCache:
@@ -75,13 +147,14 @@ class GraphCache:
 
     def program(self, name: str, fn, held=()) -> "ProgramGraphs":
         """The graphs of program `name`: fn(*inputs), a function of tensors
-        that returns a tuple of tensors.  `held` are the setup tensors fn
-        reads by address; the cache keeps them.  fn and held are taken at
-        the first use of `name`."""
+        that returns a tuple of tensors, or a protocol.Scan (ScanGraphs).
+        `held` are the setup tensors fn reads by address; the cache keeps
+        them.  fn and held are taken at the first use of `name`."""
         with self.lock:
             graphs = self.programs.get(name)
             if graphs is None:
-                graphs = self.programs[name] = ProgramGraphs(self, fn, held)
+                kind = ScanGraphs if isinstance(fn, protocol.Scan) else ProgramGraphs
+                graphs = self.programs[name] = kind(self, fn, held)
         return graphs
 
 
@@ -116,13 +189,22 @@ class ProgramGraphs:
             with torch.cuda.stream(cache.stream):
                 for static, t in zip(captured.inputs, inputs):
                     static.copy_(t, non_blocking=True)
-                captured.graph.replay()
+                captured.replay()
                 for out, o in zip(outputs, captured.outputs):
                     out.copy_(o, non_blocking=True)
             caller.wait_stream(cache.stream)
-            captured.replays += 1
             cuda_lib.add_launch_counts(captured.launches)
         return tuple(outputs)
+
+    def _static_inputs(self, inputs, caller) -> list:
+        """Fresh static buffers holding `inputs`, copied on the cache's
+        stream after the caller's work."""
+        static_inputs = [torch.empty_like(t) for t in inputs]
+        self.cache.stream.wait_stream(caller)
+        with torch.cuda.stream(self.cache.stream):
+            for static, t in zip(static_inputs, inputs):
+                static.copy_(t, non_blocking=True)
+        return static_inputs
 
     def _capture(self, inputs, caller) -> CapturedBatch:
         """Capture for the shapes of `inputs`.  The inputs are copied into
@@ -130,13 +212,17 @@ class ProgramGraphs:
         the cache's stream before the capture: that builds the kernels, puts
         every constant on the device and sets up cuBLAS for the stream.
         Those launches are counted; the capture's are not."""
-        dev, stream = self.device, self.cache.stream
-        static_inputs = [torch.empty_like(t) for t in inputs]
-        stream.wait_stream(caller)
-        with torch.cuda.stream(stream):
-            for static, t in zip(static_inputs, inputs):
-                static.copy_(t, non_blocking=True)
+        static_inputs = self._static_inputs(inputs, caller)
+        with torch.cuda.stream(self.cache.stream):
             self.fn(*static_inputs)
+        captured = self._capture_graph(self.fn, static_inputs)
+        caller.wait_stream(self.cache.stream)
+        return captured
+
+    def _capture_graph(self, fn, static_inputs) -> CapturedBatch:
+        """fn(*static_inputs) captured as one graph on the cache's stream,
+        into the cache's pool; its launches are recorded, not counted."""
+        dev, stream = self.device, self.cache.stream
         before = cuda_lib.launch_counts()
         # torch.cuda.graph empties the allocator's cache before it captures;
         # do it first, so that the reserved bytes after the capture differ
@@ -144,19 +230,56 @@ class ProgramGraphs:
         torch.cuda.synchronize(dev)
         torch.cuda.empty_cache()
         allocated, reserved = torch.cuda.memory_allocated(dev), torch.cuda.memory_reserved(dev)
-        graph = torch.cuda.CUDAGraph()
+        # keep_graph: the node count is read from the graph before it is
+        # instantiated
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
         # thread_local: another thread's host prefix (pinned buffers,
         # copies on its own stream) may run while this thread captures
         with torch.cuda.graph(graph, pool=self.cache.pool, stream=stream,
                               capture_error_mode="thread_local"):
-            outputs = tuple(self.fn(*static_inputs))
+            outputs = tuple(fn(*static_inputs))
+        graph.instantiate()
         after = cuda_lib.launch_counts()
         launches = {k: {name: after[k][name] - before[k][name] for name in after[k]} for k in after}
         cuda_lib.add_launch_counts(launches, -1)  # recorded, not launched
-        caller.wait_stream(stream)
         return CapturedBatch(graph, static_inputs, outputs, launches,
                              torch.cuda.memory_allocated(dev) - allocated,
-                             torch.cuda.memory_reserved(dev) - reserved)
+                             torch.cuda.memory_reserved(dev) - reserved,
+                             nodes=cuda_lib.graph_nodes(graph.raw_cuda_graph()))
+
+
+class ScanGraphs(ProgramGraphs):
+    """A protocol.Scan program of a GraphCache, one CapturedScan per batch
+    size: its head, step and tail each captured once, the step replayed
+    once a window (CapturedScan.replay)."""
+
+    def _capture(self, inputs, caller) -> CapturedScan:
+        """Capture the head on static copies of `inputs`, the step on
+        static buffers of the carry and of one x, and the tail on the
+        step's static carry and the head's extras.  The Scan runs once
+        before, eagerly on the cache's stream, with one step (that builds
+        the kernels and puts every constant on the device); those launches
+        are counted, the captures' are not."""
+        scan, stream = self.fn, self.cache.stream
+        static_inputs = self._static_inputs(inputs, caller)
+        with torch.cuda.stream(stream):
+            carry, xs, extras = scan.head(*static_inputs)
+            scan.tail(scan.step(carry, xs[0]), *extras)
+            k = len(carry)
+            statics = [torch.empty_like(c) for c in carry] + [torch.empty_like(xs[0])]
+        del carry, xs, extras
+        head = self._capture_graph(lambda *a: _flat_head(scan.head(*a)), static_inputs)
+        step = self._capture_graph(lambda *a: scan.step(tuple(a[:k]), a[k]), statics)
+        tail = self._capture_graph(lambda *a: scan.tail(tuple(a[:k]), *a[k:]),
+                                   statics[:k] + list(head.outputs[k + 1:]))
+        caller.wait_stream(stream)
+        return CapturedScan(head, step, tail)
+
+
+def _flat_head(out):
+    """A Scan head's (carry, xs, extras) as one tuple of tensors."""
+    carry, xs, extras = out
+    return (*carry, xs, *extras)
 
 
 class VerifyBatchGraphs(ProgramGraphs):

@@ -13,14 +13,16 @@ CUDA device by asynchronous copies from pinned memory.
 
 Each operation's device work is one program of kzg/protocol.py a batch,
 or a chunk of commit_chunk blobs: verify_blob_batch, verify_kzg,
-validate_g1, commit_chunk and prove_chunk.  On a CUDA device each runs as a
-CUDA graph of this Kzg's graph cache (graphs.py), captured at the first call
-of its batch size and replayed after; the outputs of all of an operation's
-programs are read back in one copy, and the errors are raised from them in
-the JAX package's order.  The batch verification's dispatch never waits
-for the device, so streaming overlaps a batch's host prefix with the
-device work of the batches before it.  CPU tensors run the same programs
-eagerly, and so does the windowed commit (comb_h = 0) on CUDA.
+validate_g1, commit_chunk and prove_chunk (with the windowed commit,
+comb_h = 0: commit_scan and prove_scan).  On a CUDA device each runs as
+CUDA graphs of this Kzg's graph cache (graphs.py), captured at the first
+call of its batch size and replayed after: one graph a program, or for a
+scan a head, a step replayed once a window and a tail.  The outputs of all
+of an operation's programs are read back in one copy, and the errors are
+raised from them in the JAX package's order.  The batch verification's
+dispatch never waits for the device, so streaming overlaps a batch's host
+prefix with the device work of the batches before it.  CPU tensors run the
+same programs eagerly.
 """
 
 from __future__ import annotations
@@ -166,44 +168,43 @@ class Kzg:
         size = min(self._canon(n), self.commit_chunk)
         return size, range(0, n, size)
 
-    def _commit_fn(self):
-        """(commit, held): protocol.commit_comb with the comb table bound
-        (built at the first commit), or protocol.commit_msm with the setup
-        points when comb_h = 0; and the tensors it reads by address."""
-        h = self.config.comb_h
-        if h == 0:
-            return (functools.partial(protocol.commit_msm, self.setup.g1_points,
-                                      window=self.config.msm_window), self.setup.g1_points)
+    def _table(self):
+        """The comb table, built at the first call."""
         with self._table_lock:
             if self._comb_table is None:
-                self._comb_table = comb.build_table(self.setup.g1_points, h)
-        return (functools.partial(protocol.commit_comb, self._comb_table, h=h, n=self.config.n),
-                self._comb_table)
+                self._comb_table = comb.build_table(self.setup.g1_points, self.config.comb_h)
+        return self._comb_table
 
     def _program(self, name: str):
-        """(fn, held, graphed) of program `name`: the protocol function with
-        this setup's tensors bound, the tensors it reads by address, and
-        whether it runs as a CUDA graph (all but the windowed commit's)."""
+        """(fn, held) of program `name`: the protocol program with this
+        setup's tensors bound, and the tensors it reads by address.  The
+        windowed commit and proof (comb_h = 0) are protocol.Scan programs
+        over the windows, as the JAX package's lax.scan; the others are
+        functions of tensors."""
+        setup, cfg = self.setup, self.config
         if name == "verify_kzg":
-            return functools.partial(protocol.verify_kzg, tau2=self.setup.tau2), self.setup.tau2, True
+            return functools.partial(protocol.verify_kzg, tau2=setup.tau2), setup.tau2
         if name == "validate_g1":
-            return protocol.validate_g1, (), True
-        commit, held = self._commit_fn()
-        graphed = self.config.comb_h > 0
+            return protocol.validate_g1, ()
+        if cfg.comb_h == 0:
+            if name == "commit":
+                return protocol.commit_scan(setup.g1_points, cfg.msm_window), setup.g1_points
+            return (protocol.prove_scan(setup.g1_points, setup.roots, setup.inv_roots, cfg.msm_window),
+                    (setup.g1_points, setup.roots, setup.inv_roots))
+        table = self._table()
+        commit = functools.partial(protocol.commit_comb, table, h=cfg.comb_h, n=cfg.n)
         if name == "commit":
-            return functools.partial(protocol.commit_chunk, commit=commit), held, graphed
-        setup = self.setup
+            return functools.partial(protocol.commit_chunk, commit=commit), table
         return (functools.partial(protocol.prove_chunk, roots=setup.roots,
                                   inv_roots=setup.inv_roots, commit=commit),
-                (setup.roots, setup.inv_roots, held), graphed)
+                (setup.roots, setup.inv_roots, table))
 
     def _run(self, name: str, inputs):
-        """Program `name` on `inputs`: a replay of its graph in this Kzg's
-        cache on CUDA (captured at the first call of the batch size), an
-        eager call on the CPU and for the windowed commit.  The outputs are
-        not read back."""
-        fn, held, graphed = self._program(name)
-        if self._graphs is None or not graphed:
+        """Program `name` on `inputs`: on CUDA the replay of its graphs in
+        this Kzg's cache (captured at the first call of the batch size), on
+        the CPU an eager call.  The outputs are not read back."""
+        fn, held = self._program(name)
+        if self._graphs is None:
             return fn(*inputs)
         return self._graphs.program(name, fn, held)(inputs)
 

@@ -19,6 +19,9 @@
 * commit_chunk            -- decode, commit and compress a chunk of blobs
 * prove_chunk             -- decode, evaluate, quotient, commit and compress:
                              a chunk of blobs' proofs at their points
+* commit_scan, prove_scan -- commit_chunk and prove_chunk with the windowed
+                             commit, as a Scan: a head, one window step
+                             looped over the windows, and a tail
 * to_device, fr_planes    -- host arrays to the device in one asynchronous
                              copy
 
@@ -26,10 +29,16 @@ Special cases are masks, not control flow, and nothing here reads a tensor
 back to the host or uploads a constant more than once per device.  The five
 programs verify_blob_batch, verify_kzg, validate_g1, commit_chunk and
 prove_chunk take and return tensors only: graphs.py captures each of them
-as a CUDA graph, and the CPU runs them eagerly.
+as a CUDA graph, and the CPU runs them eagerly.  A Scan's head, step and
+tail do too: graphs.py captures each as a graph of its own and replays the
+step once a window, as the JAX package runs its lax.scan.
 """
 
 from __future__ import annotations
+
+import functools
+from dataclasses import dataclass
+from typing import Callable
 
 import numpy as np
 import torch
@@ -248,18 +257,82 @@ def commit_chunk(blob_bytes, commit):
     return ok, compress.g1_compress_planes(commit(elements))
 
 
-def prove_chunk(blob_bytes, z_plain, roots, inv_roots, commit):
-    """Each blob's proof at its point z: decode_blobs, the elements and z in
-    Montgomery form, evaluate, quotient, y and q back to plain form, the
-    commitment of q and its compression.  Returns (ok (B,), y plain
-    (B, 16), (B, 48) uint8 proofs); `commit` as for commit_chunk."""
+def quotient_chunk(blob_bytes, z_plain, roots, inv_roots):
+    """prove_chunk up to the commitment: decode_blobs, the elements and z
+    in Montgomery form, evaluate, quotient, and y and q back to plain form.
+    Returns (ok (B,), y plain (B, 16), q plain (B, N, 16))."""
     elements, ok = decode_blobs(blob_bytes)
     elements_mont = fr_to_mont(elements)
     z_mont = fr_to_mont(z_plain)
     y_mont = evaluate(elements_mont, z_mont, roots)
     q_mont = quotient(elements_mont, z_mont, y_mont, roots, inv_roots)
-    y_plain, q_plain = fr_from_mont(y_mont), fr_from_mont(q_mont)
+    return ok, fr_from_mont(y_mont), fr_from_mont(q_mont)
+
+
+def prove_chunk(blob_bytes, z_plain, roots, inv_roots, commit):
+    """Each blob's proof at its point z: quotient_chunk, then the
+    commitment of q and its compression.  Returns (ok (B,), y plain
+    (B, 16), (B, 48) uint8 proofs); `commit` as for commit_chunk."""
+    ok, y_plain, q_plain = quotient_chunk(blob_bytes, z_plain, roots, inv_roots)
     return ok, y_plain, compress.g1_compress_planes(commit(q_plain))
+
+
+@dataclass(frozen=True)
+class Scan:
+    """A program in the form of the JAX package's lax.scan programs:
+    head(*inputs) -> (carry, xs, extras), then carry = step(carry, x) for
+    each x of xs along its leading axis, in order, then tail(carry,
+    *extras) -> the outputs; carry and extras are tuples of tensors, xs a
+    tensor.  Called, it runs eagerly; graphs.py captures the head, the step
+    and the tail as three CUDA graphs and replays the step's graph once an
+    x."""
+
+    head: Callable
+    step: Callable
+    tail: Callable
+
+    def __call__(self, *inputs):
+        carry, xs, extras = self.head(*inputs)
+        for x in xs:
+            carry = self.step(carry, x)
+        return self.tail(carry, *extras)
+
+
+def _commit_head(blob_bytes, n_points: int, window: int):
+    elements, ok = decode_blobs(blob_bytes)
+    acc, digits = msm.window_start(elements, n_points, window)
+    return acc, digits, (ok,)
+
+
+def _prove_head(blob_bytes, z_plain, roots, inv_roots, n_points: int, window: int):
+    ok, y_plain, q_plain = quotient_chunk(blob_bytes, z_plain, roots, inv_roots)
+    acc, digits = msm.window_start(q_plain, n_points, window)
+    return acc, digits, (ok, y_plain)
+
+
+def _compress_tail(acc, *extras):
+    return (*extras, compress.g1_compress_planes(acc))
+
+
+def commit_scan(g1_points, window: int = 8) -> Scan:
+    """commit_chunk with commit_msm bound, as a Scan over the windows, MSB
+    first: the head decodes the blobs and gives the identity accumulator
+    and the window digits (msm.window_start), the step is
+    msm.window_step, the tail compresses the sums.  Gives commit_chunk's
+    outputs bit for bit."""
+    points = msm.pad_points(g1_points)
+    return Scan(functools.partial(_commit_head, n_points=points[0].shape[0], window=window),
+                functools.partial(msm.window_step, points, c=window), _compress_tail)
+
+
+def prove_scan(g1_points, roots, inv_roots, window: int = 8) -> Scan:
+    """prove_chunk with commit_msm bound, as a Scan over the windows of q:
+    the head is quotient_chunk and msm.window_start of q, the step and the
+    tail are commit_scan's.  Gives prove_chunk's outputs bit for bit."""
+    points = msm.pad_points(g1_points)
+    return Scan(functools.partial(_prove_head, roots=roots, inv_roots=inv_roots,
+                                  n_points=points[0].shape[0], window=window),
+                functools.partial(msm.window_step, points, c=window), _compress_tail)
 
 
 #: the torch dtype of each numpy dtype that to_device takes

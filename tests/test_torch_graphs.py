@@ -9,6 +9,12 @@ between the copies in and its read of the inputs, so two threads that
 share the graphs would mix up their batches if the calls interleaved.  The
 stand-in streams record every wait and every replay in order.  Every value
 is an integer: the tolerance is exact equality.
+
+The generic cache (GraphCache, ProgramGraphs) is driven the same way with
+several programs sharing one stand-in pool, and so are scan programs
+(ScanGraphs: a head, a step replayed once a window, a tail), through a
+stand-in for ProgramGraphs._capture_graph, the one method every capture
+goes through, so the scans' own capture and replay logic runs here.
 """
 
 import contextlib
@@ -293,3 +299,219 @@ def test_replay_refuses_inputs_that_do_not_fit(fake_cuda, pool_capture):
         verify((a, b[:, :4]))
     with pytest.raises(ValueError, match="does not fit"):
         verify((a, b.to(torch.int32)))
+
+
+# --- scan programs: a head, a step replayed once a window, a tail -----------
+
+#: windows of the stand-in scan
+W = 5
+
+#: the launches each part of the stand-in scan makes when it runs
+SCAN_LAUNCHES = {"head": {"mont_mul": 2}, "step": {"prefix_scan": 1, "mont_mul": 5},
+                 "tail": {"pow_chain": 1, "mont_mul": 1}}
+
+
+def launch(part: str) -> None:
+    """Count the stand-in launches of one part, as its kernels' wrappers
+    would."""
+    for name, v in SCAN_LAUNCHES[part].items():
+        cuda_lib.LAUNCHES[name] += v
+
+
+def launch_diff(before, after):
+    return {k: {n: after[k][n] - before[k][n] for n in after[k]} for k in after}
+
+
+def make_scan(log):
+    """A protocol.Scan whose result depends on the order of its steps (a
+    Horner sum of the windows) and whose parts log each call; window w's x
+    holds w in its thousands."""
+    from kateth_tpu_torch.kzg import protocol
+
+    def head(a):
+        log.append(("head",))
+        launch("head")
+        xs = torch.arange(W)[:, None] * 1000 + a[:, :W].T
+        return (a[:, 0] * 0, a[:, 1] * 0 + 1), xs, (a.sum(-1),)
+
+    def step(carry, x):
+        log.append(("step", int(x[0]) // 1000))
+        launch("step")
+        return carry[0] * 3 + x, carry[1] * 2 + x % 7
+
+    def tail(carry, s):
+        log.append(("tail",))
+        launch("tail")
+        return carry[0] + carry[1], s
+
+    return protocol.Scan(head, step, tail)
+
+
+class ScratchGraph:
+    """Stands in for a captured graph of fn whose outputs pass through a
+    memory pool shared by every graph of the cache (`scratch`): a replay
+    runs fn on the static inputs (taking back out the launches its Python
+    wrappers count, as a replay runs none of them), writes the outputs to
+    the scratch, sleeps, and copies what the scratch then holds into the
+    static outputs.  Two replays that overlapped would give each other's
+    values."""
+
+    def __init__(self, fn, inputs, outputs, scratch):
+        self.fn, self.inputs, self.outputs, self.scratch = fn, inputs, outputs, scratch
+
+    def replay(self) -> None:
+        before = cuda_lib.launch_counts()
+        values = self.fn(*self.inputs)
+        cuda_lib.add_launch_counts(launch_diff(before, cuda_lib.launch_counts()), -1)
+        flat = torch.cat([v.reshape(-1).to(torch.int64) for v in values])
+        self.scratch[:flat.numel()] = flat
+        time.sleep(0.002)
+        o = 0
+        for out in self.outputs:
+            out.copy_(self.scratch[o:o + out.numel()].reshape(out.shape).to(out.dtype))
+            o += out.numel()
+
+
+@pytest.fixture
+def scratch_capture(monkeypatch):
+    """ProgramGraphs._capture_graph (every graph a ProgramGraphs or a
+    ScanGraphs captures) replaced by one that runs fn once, as a capture
+    records it, takes its launches back out as a capture does, and makes a
+    ScratchGraph over one scratch buffer for the whole process."""
+    scratch = torch.zeros(1 << 16, dtype=torch.int64)
+
+    def capture_graph(self, fn, static_inputs):
+        before = cuda_lib.launch_counts()
+        outputs = tuple(fn(*static_inputs))
+        launches = launch_diff(before, cuda_lib.launch_counts())
+        cuda_lib.add_launch_counts(launches, -1)
+        graph = ScratchGraph(fn, list(static_inputs), outputs, scratch)
+        return graphs.CapturedBatch(graph, list(static_inputs), outputs, launches, 0, 0)
+
+    monkeypatch.setattr(graphs.ProgramGraphs, "_capture_graph", capture_graph)
+
+
+def test_scan_replays_its_step_in_order(fake_cuda, scratch_capture):
+    """A scan program's call: the cache's stream waits for the caller's,
+    the head's graph replays, the step's W times in window order, then the
+    tail's, and the caller's stream waits for the cache's; the result is the
+    eager scan's, and the call adds the head's launches, W times the
+    step's and the tail's."""
+    log = fake_cuda
+    cache = make_cache(log)
+    scan = make_scan(log)
+    prog = cache.program("commit", scan)
+    assert isinstance(prog, graphs.ScanGraphs)
+    me = f"caller {threading.current_thread().name}"
+    a, b = batch(7)
+    prog((a,))  # captures
+    want = scan(b)
+    log.clear()
+    before = cuda_lib.launch_counts()
+    got = prog((b,))
+    after = cuda_lib.launch_counts()
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+    assert log == [("graphs", "waits for", me), ("head",), *(("step", w) for w in range(W)),
+                   ("tail",), (me, "waits for", "graphs")]
+    want_launches = {}
+    for part, times in (("head", 1), ("step", W), ("tail", 1)):
+        for name, v in SCAN_LAUNCHES[part].items():
+            want_launches[name] = want_launches.get(name, 0) + times * v
+    assert launch_diff(before, after)["launches"] == {
+        name: want_launches.get(name, 0) for name in cuda_lib.LAUNCHES}
+    captured = prog.graphs[4]
+    assert captured.length == W and captured.launches["launches"]["prefix_scan"] == W
+    assert (captured.replays, captured.head.replays, captured.step.replays,
+            captured.tail.replays) == (2, 2, 2 * W, 2)
+
+
+def test_scan_and_program_threads_get_their_own_results(fake_cuda, scratch_capture):
+    """Four threads on one cache, two in a scan program and two in a
+    plain one: the shared scratch would mix values if a step, head or tail
+    replay overlapped another program's replay, so each thread getting its
+    own results shows that a whole scan call holds the one lock."""
+    cache = make_cache(fake_cuda)
+    scan = make_scan([])
+    commit = cache.program("commit", scan)
+    verify = cache.program("verify", verify_like)
+    failures = []
+
+    def worker(k: int):
+        for i in range(8):
+            a, b = batch(100 * k + i)
+            if k % 2:
+                got, want = commit((a,)), scan(a)
+            else:
+                got, want = verify((a, b)), verify_like(a, b)
+            if not all(torch.equal(x, y) for x, y in zip(got, want)):
+                failures.append((k, i))
+
+    threads = [threading.Thread(target=worker, args=(k,), name=f"t{k}") for k in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+        assert not t.is_alive()
+    assert failures == []
+    assert list(commit.graphs) == [4] and list(verify.graphs) == [4]
+
+
+def test_windowed_kzg_runs_commit_and_prove_through_the_cache(fake_cuda, scratch_capture,
+                                                               monkeypatch):
+    """A Kzg at comb_h = 0 whose graph cache stands in for a CUDA device's
+    sends blobs_to_kzg_commitments and compute_kzg_proofs through scan
+    programs of its cache, never runs a program eagerly, and gets what an
+    eager Kzg (the CPU's) gets.  A stand-in window step (a doubling and the
+    addition of one setup point a window), a K2 stand-in and a setup of
+    random digit planes keep it cheap: only the routing is at stake here;
+    the eager Kzg runs the same."""
+    import numpy as np
+
+    from kateth_tpu_torch import host
+    from kateth_tpu_torch.curves import msm, ops
+    from kateth_tpu_torch.fields import cuda_mont
+    from kateth_tpu_torch.fields import limbs as L
+    from kateth_tpu_torch.fields.specs import FP, FR
+    from kateth_tpu_torch.kzg import Kzg, KzgConfig, TorchSetup, protocol
+
+    def step_stand_in(points, acc, dig, c):
+        F = ops.FP_FIELD
+        return ops.padd(F, ops.pdouble(F, acc), tuple(p[dig[..., 0] % p.shape[0]] for p in points))
+
+    monkeypatch.setattr(msm, "window_step", step_stand_in)
+    monkeypatch.setattr(cuda_mont, "pow_const", lambda spec, a, e: L.add(spec, a, a))
+    n = 8
+    rng = np.random.default_rng(0x5CA7)
+
+    def planes(rows, spec):
+        d = rng.integers(0, 1 << 16, (rows, spec.n_digits))
+        d[:, -1] %= int(spec.mod_digits[-1])
+        return d
+
+    setup = TorchSetup.from_arrays(
+        [planes(n, FP) for _ in range(3)] + [planes(2, FP) for _ in range(3)]
+        + [planes(n, FR), planes(n, FR)], KzgConfig(n=n, g2_len=2, canon_batch=2, comb_h=0), "cpu")
+    scalars = [int(v) % host.R for v in rng.integers(0, 1 << 62, 4 * n)]
+    blobs = [b"".join(v.to_bytes(32, "big") for v in scalars[i * n:(i + 1) * n]) for i in range(3)]
+    zs = [v.to_bytes(32, "big") for v in scalars[3 * n:3 * n + 3]]
+
+    def run(kzg):
+        return kzg.blobs_to_kzg_commitments(blobs), kzg.compute_kzg_proofs(blobs, zs)
+
+    want = run(Kzg(setup))
+    kzg = Kzg(setup)
+    kzg._graphs = make_cache(fake_cuda)
+
+    def refuse(*_, **__):
+        raise AssertionError("a program ran eagerly")
+
+    for owner, name in ((protocol.Scan, "__call__"), (protocol, "commit_chunk"),
+                        (protocol, "prove_chunk"), (msm, "msm")):
+        monkeypatch.setattr(owner, name, refuse)
+    assert run(kzg) == want
+    programs = kzg._graphs.programs
+    assert sorted(programs) == ["commit", "prove"]
+    for name in ("commit", "prove"):
+        assert isinstance(programs[name], graphs.ScanGraphs)
+        captured = programs[name].graphs[4]  # 3 blobs: one chunk of 4
+        assert captured.replays == 1 and captured.step.replays == 32

@@ -17,7 +17,11 @@ Runs 2 and 3 must finish and give the first run's outputs bit for bit.
 The other four programs of graphs.py's cache, protocol.verify_kzg,
 validate_g1, commit_chunk and prove_chunk (with the comb commit bound as
 Kzg._program binds it, over a table of random rows), go through the same
-three runs on inputs of the same setup.
+three runs on inputs of the same setup, and so do the parts of the
+windowed commit and proof (comb_h = 0, protocol.commit_scan and
+prove_scan), each of which graphs.py captures as a graph of its own: the
+two heads, the window step and the two tails, at msm_window = 2 (one step
+of 2 doublings and 3 bucket boundaries).
 
 On a CUDA device the wrappers of K2-K8 are one kernel launch each, which
 reads nothing back.  Their plain versions, which only the CPU runs, repeat
@@ -100,6 +104,10 @@ def g2_ladder_stand_in(point, scalar_digits):
                  for c in point)
 
 
+def chain_prefix_stand_in(p, g):
+    return tuple(L.add(FP, c, c) for c in p)
+
+
 def comb_chain_stand_in(x, y, flags, g=cuda_msm.COMB_CHAIN):
     """The first row of each chain of g rows, mixed with its y and flag."""
     x0, y0 = (c.reshape(*c.shape[:-2], -1, g, FP.n_digits)[..., 0, :] for c in (x, y))
@@ -109,14 +117,15 @@ def comb_chain_stand_in(x, y, flags, g=cuda_msm.COMB_CHAIN):
 
 @pytest.fixture(scope="module")
 def stand_ins():
-    """K2-K8's wrappers (K7 is on no program here) replaced by cheap
-    stand-ins for the module's tests."""
+    """K2-K8's wrappers replaced by cheap stand-ins for the module's
+    tests."""
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(cuda_mont, "pow_const", pow_stand_in)
         mp.setattr(cuda_mont, "g1_scalar_mul", ladder_stand_in)
         mp.setattr(cuda_pairing, "miller_loop_affine", miller_stand_in)
         mp.setattr(cuda_pairing, "hard_part", hard_part_stand_in)
         mp.setattr(cuda_pairing, "g2_scalar_mul", g2_ladder_stand_in)
+        mp.setattr(cuda_msm, "chain_prefix", chain_prefix_stand_in)
         mp.setattr(cuda_msm, "comb_chain_sum", comb_chain_stand_in)
         yield
 
@@ -280,5 +289,81 @@ def test_program_constants_are_made_once(programs, name, monkeypatch):
     for attr in ("as_tensor", "tensor", "from_numpy"):
         monkeypatch.setattr(torch, attr, refuse)
     got = list(fn(*inputs))
+    monkeypatch.undo()
+    assert_same(got, want)
+
+
+# --- the windowed commit and proof: heads, window step, tails ----------------
+
+SCAN_PARTS = ("commit head", "prove head", "window step", "commit tail", "prove tail")
+
+
+@pytest.fixture(scope="module")
+def scan_parts(stand_ins):
+    """Each part of the windowed scans (Kzg._program at comb_h = 0, a
+    window of 2 bits) as a function of its inputs returning a flat list of
+    tensors, its inputs and its outputs from a plain run.  The step takes a
+    carry one step past the identity and a middle window's digits."""
+    rng = random.Random(0x57E9)
+    osetup = OracleSetup.generate_insecure(N, g2_len=2)
+    jax_setup = DeviceSetup.from_oracle(osetup, JaxKzgConfig(n=N, g2_len=2))
+    arrays = [np.asarray(getattr(jax_setup, k)) for k in FIELDS]
+    cfg = KzgConfig(n=N, g2_len=2, canon_batch=4, comb_h=0, msm_window=2)
+    kzg = Kzg(TorchSetup.from_arrays(arrays, cfg, "cpu"))
+    commit, prove = kzg._program("commit")[0], kzg._program("prove")[0]
+    blobs = [blob_to_bytes([rng.randrange(of.R) for _ in range(N)]) for _ in range(3)]
+    rows = np.frombuffer(b"".join(blobs) + bytes(32 * N), dtype=np.uint8).reshape(4, -1)
+    z = protocol.fr_planes_host([rng.randrange(of.R) for _ in range(4)])
+    blob_rows, z = protocol.to_device([rows, z], "cpu")
+    carry, xs, (ok,) = commit.head(blob_rows)
+    _, _, (_, y) = prove.head(blob_rows, z)
+    w = xs.shape[0] // 2
+    carry = commit.step(carry, xs[w - 1])
+
+    def flat(out):
+        return [t for x in out for t in (x if isinstance(x, tuple) else (x,))]
+
+    parts = {
+        "commit head": (lambda *a: flat(commit.head(*a)), (blob_rows,)),
+        "prove head": (lambda *a: flat(prove.head(*a)), (blob_rows, z)),
+        "window step": (lambda *a: list(commit.step(tuple(a[:3]), a[3])), (*carry, xs[w])),
+        "commit tail": (lambda *a: list(commit.tail(tuple(a[:3]), *a[3:])), (*carry, ok)),
+        "prove tail": (lambda *a: list(prove.tail(tuple(a[:3]), *a[3:])), (*carry, ok, y)),
+    }
+    return {name: (fn, inputs, fn(*inputs)) for name, (fn, inputs) in parts.items()}
+
+
+def test_scan_parts_plain_run_shapes(scan_parts):
+    shapes = {name: [(tuple(t.shape), t.dtype) for t in want]
+              for name, (_, _, want) in scan_parts.items()}
+    point = [((4, 24), torch.int64)] * 3
+    assert shapes == {
+        "commit head": point + [((128, 4, N), torch.int64), ((4,), torch.bool)],
+        "prove head": point + [((128, 4, N), torch.int64), ((4,), torch.bool),
+                               ((4, 16), torch.int64)],
+        "window step": point,
+        "commit tail": [((4,), torch.bool), ((4, 48), torch.uint8)],
+        "prove tail": [((4,), torch.bool), ((4, 16), torch.int64), ((4, 48), torch.uint8)],
+    }
+
+
+@pytest.mark.parametrize("name", SCAN_PARTS)
+def test_scan_part_no_host_reads(scan_parts, name):
+    fn, inputs, want = scan_parts[name]
+    with NoHostReads():
+        got = fn(*inputs)
+    assert_same(got, want)
+
+
+@pytest.mark.parametrize("name", SCAN_PARTS)
+def test_scan_part_constants_are_made_once(scan_parts, name, monkeypatch):
+    fn, inputs, want = scan_parts[name]
+
+    def refuse(*_, **__):
+        raise AssertionError("a constant was built from host data again")
+
+    for attr in ("as_tensor", "tensor", "from_numpy"):
+        monkeypatch.setattr(torch, attr, refuse)
+    got = fn(*inputs)
     monkeypatch.undo()
     assert_same(got, want)

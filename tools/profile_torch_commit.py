@@ -25,8 +25,18 @@ host clock between two syncs, summed over the loop it sits in:
      kernels' durations summed: the device work a replay of the library's
      commit graph runs; and one traced library commit after a warm-up (a
      graph replay where the tree has one): its device busy time and
-     operations.
-Both replays are checked against the library's own commit.  Prints one
+     operations;
+  5. the same for the windowed commit (comb_h = 0): the device time of its
+     head (blob decode and window digits), of each stage of every window
+     step (the doublings, the argsort and gather, K7, the Hillis-Steele
+     scan of the chain totals, the offset add of the two-level scan, the
+     bucket-boundary gather, the halving sum, the
+     (2^c - 1) total, the window sum and its addition), each traced alone
+     after a warm-up and summed over the W windows, and of its tail
+     (compression): the device work the windowed commit's graph replays
+     run; and one traced library windowed commit after a warm-up (graph
+     replays where the tree has them).
+The replays are checked against the library's own commits.  Prints one
 JSON object with the card's name and power limit.
 
 Run from the repository root: python3 tools/profile_torch_commit.py
@@ -226,6 +236,94 @@ def main() -> int:
                                         "library_traced_ms": library_ms,
                                         "library_device_busy_ms": sum(busy),
                                         "library_device_operations": len(busy)}
+
+    # 5. device time by stage of the windowed commit (comb_h = 0): the
+    # head, every window step's stages, the tail; then a traced library
+    # windowed commit
+    from dataclasses import replace
+
+    kzg_w = Kzg(replace(kzg.setup, config=replace(cfg, comb_h=0)))
+    pts = kzg_w.setup.g1_points
+    stages = {}
+
+    def add(name, part):
+        s = stages.setdefault(name, {"ms": 0.0, "operations": 0})
+        s["ms"] += part["ms"]
+        s["operations"] += part["operations"]
+
+    def head():
+        el, _ = protocol.decode_blobs(rows)
+        return msm.window_start(el, pts[0].shape[0], c)
+
+    (acc, digits), part = device_ms(head)
+    add("head", part)
+    for dig in digits:
+        def doublings():
+            a = acc
+            for _ in range(c):
+                a = ops.pdouble(F1, a)
+            return a
+
+        doubled, part = device_ms(doublings)
+        add("doublings", part)
+
+        def sort_gather():
+            order = torch.argsort(dig, dim=-1, stable=True)
+            return torch.take_along_dim(dig, order, dim=-1), tuple(a[order] for a in pts)
+
+        (sd, gathered), part = device_ms(sort_gather)
+        add("argsort_gather", part)
+        # cuda_msm.prefix_scan_kernel by its three stages: K7 within the
+        # chains, the Hillis-Steele scan of the chain totals, the offset add
+        g = cuda_msm.CHAIN
+        within, part = device_ms(lambda: cuda_msm.chain_prefix(gathered, g))
+        add("prefix_scan_K7", part)
+        within = tuple(cuda_msm._chains(a, g) for a in within)
+
+        def totals_scan():
+            incl = msm.prefix_scan(F1, tuple(w[..., g - 1, :] for w in within), axis=-2)
+            return tuple(torch.cat([i.expand(*t.shape[:-2], 1, t.shape[-1]), t[..., :-1, :]], dim=-2)
+                         for i, t in zip(ops.identity(F1, (), dev), incl))
+
+        excl, part = device_ms(totals_scan)
+        add("chain_totals_scan", part)
+
+        def offset_add():
+            off = tuple(e[..., None, :].expand_as(w) for e, w in zip(excl, within))
+            return tuple(a.reshape(gathered[0].shape) for a in ops.padd(F1, within, off))
+
+        prefix, part = device_ms(offset_add)
+        add("offset_add", part)
+
+        def boundary():
+            c_j = torch.searchsorted(sd.contiguous(), j)
+            idx = (c_j - 1).clamp(min=0)[..., None]
+            bnd = tuple(torch.take_along_dim(a, idx, dim=-2) for a in prefix)
+            return ops.pselect(F1, c_j == 0, ops.identity(F1, (64, B - 1), dev), bnd)
+
+        bnd, part = device_ms(boundary)
+        add("boundary", part)
+        gsum, part = device_ms(lambda: msm.halving_sum(F1, bnd, axis=-2))
+        add("halving_sum", part)
+        tot, part = device_ms(lambda: msm.scalar_mul_const(F1, tuple(a[..., -1, :] for a in prefix), B - 1))
+        add("total_times_255", part)
+        acc, part = device_ms(lambda: ops.padd(F1, doubled, ops.padd(F1, tot, ops.pneg(F1, gsum))))
+        add("window_sum_and_add", part)
+    got, part = device_ms(lambda: compress.g1_compress_planes(acc))
+    add("tail", part)
+    want = [case["output"]] * 64
+    assert compress.rows_to_bytes(got.cpu().numpy()) == want, "windowed replay differs"
+    assert kzg_w.blobs_to_kzg_commitments(blobs) == want  # the captures, if any
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, library_ms = timed(lambda: kzg_w.blobs_to_kzg_commitments(blobs))
+    busy = [ev.time_range.elapsed_us() / 1e3 for ev in prof.events()
+            if ev.device_type == torch.autograd.DeviceType.CUDA]
+    out["msm_commit_device_ms_by_stage"] = {"stages": stages,
+                                            "sum_ms": sum(v["ms"] for v in stages.values()),
+                                            "library_traced_ms": library_ms,
+                                            "library_device_busy_ms": sum(busy),
+                                            "library_device_operations": len(busy)}
     print(json.dumps(out, indent=1))
     return 0
 
