@@ -80,9 +80,13 @@ Phases, one line each; any failure exits non-zero before the last line:
    64-blob commit, valid 64-blob blob proofs, a non-canonical blob element
    and a bad z, each dispatch under sync debug mode "error" and each case
    through the public API; a 64-blob commit's replays launching what the
-   eager call launches, K7 32 times; each capture's graph nodes and pool;
-   and graph against eager times, three runs each in turns, of a 64-blob
-   commit and a 64-blob compute_blob_kzg_proofs;
+   eager call launches, K7 32 times; the prove scan's step graph required
+   to be the commit scan's (one step graph a batch size, shared); each
+   capture's graph nodes and pool; the eager twin's peak bytes allocated
+   for a 64-blob commit and for 64-blob blob proofs beside the windowed
+   Kzg's whole pool (its captures' reserves, and its segments); and graph
+   against eager times, three runs each in turns, of a 64-blob commit and
+   a 64-blob compute_blob_kzg_proofs;
    - form conversion: 64 mainnet blobs (the valid blob_to_kzg_commitment
      vectors' blobs, repeated) through blobs_to_coefficients and back
      through coefficients_to_blobs, which must give the same bytes; two
@@ -911,9 +915,10 @@ def path_graphs_against_eager(kzg, batch, smi: str) -> None:
         for size, g in sorted(graphs.graphs.items()):
             log(f"pool: {name} at {size}: {g.pool_bytes} bytes allocated, "
                 f"{g.pool_reserved_bytes} bytes newly reserved [{smi}]")
+    reserved = kzg._graphs.programs["commit"].graphs[64].pool_reserved_bytes
     log(f"pool: the eager 64-blob commit's peak working set (the table apart) {working} bytes "
         f"allocated, {working_reserved} bytes newly reserved from an emptied cache; the commit "
-        f"capture reserved {kzg._graphs.programs['commit'].graphs[64].pool_reserved_bytes} [{smi}]")
+        f"capture reserved {reserved}, {reserved / working:.3f} x the eager peak [{smi}]")
 
     # two threads on one Kzg: one commits while the other verifies batches
     wrong = (batch[0], batch[1], with_item(batch[2], 0, batch[2][1]))
@@ -1041,13 +1046,50 @@ def windowed_graphs_against_eager(kzg, smi: str) -> None:
     log(f"windowed graphs: a 64-blob commit's replays count the eager call's launches: "
         f"{counts['eager']['launches']}; mont_mul by lanes {counts['eager']['mont_mul_lanes']}")
 
+    cache = kzg._graphs
+    step = cache.programs["commit"].graphs[64].step
+    if cache.programs["prove"].graphs[64].step is not step:
+        raise AssertionError("windowed graphs: the prove scan captured a step of its own")
     for name in ("commit", "prove"):
-        scan = kzg._graphs.programs[name].graphs[64]
+        scan = cache.programs[name].graphs[64]
         for part in ("head", "step", "tail"):
             g = getattr(scan, part)
-            log(f"pool (comb_h = 0): {name} {part} at 64: {g.nodes} graph nodes, a replay "
+            shared = " (the commit's step, shared: no capture)" if name == "prove" and part == "step" else ""
+            log(f"pool (comb_h = 0): {name} {part} at 64{shared}: {g.nodes} graph nodes, a replay "
                 f"launches {g.launches['launches']}; {g.pool_bytes} bytes allocated, "
                 f"{g.pool_reserved_bytes} bytes newly reserved [{smi}]")
+
+    # the whole pool against the eager twin's peaks for the same calls
+    peaks = {}
+    for op, fn, want in (("64-blob commit", lambda: eager.blobs_to_kzg_commitments(blobs),
+                          [blob_comm] * 64),
+                         ("64-blob blob proofs", lambda: eager.compute_blob_kzg_proofs(blobs, comms),
+                          [blob_proof] * 64)):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        if fn() != want:
+            raise AssertionError(f"windowed graphs: the eager {op} gave a wrong result")
+        torch.cuda.synchronize()
+        peaks[op] = torch.cuda.max_memory_allocated() - base
+    captures = {id(g): g for graphs in cache.programs.values() for x in graphs.graphs.values()
+                for g in ((x.head, x.step, x.tail) if hasattr(x, "step") else (x,))}
+    whole = sum(g.pool_reserved_bytes for g in captures.values())
+    # the graphs' static buffers, outside the pool: inputs, and the heads'
+    # outputs
+    statics = {t.data_ptr(): t.nbytes for g in captures.values() for t in g.inputs}
+    statics.update({t.data_ptr(): t.nbytes for graphs in cache.programs.values()
+                    for x in graphs.graphs.values() if hasattr(x, "step") for t in x.head.outputs})
+    segments = sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                   if tuple(seg.get("segment_pool_id", ())) == tuple(cache.pool))
+    log(f"pool (comb_h = 0): the eager twin's peak above its baseline "
+        + ", ".join(f"{op} {b} bytes allocated" for op, b in peaks.items())
+        + f"; the windowed Kzg's whole pool {whole} bytes newly reserved by its "
+        f"{len(captures)} captures ({', '.join(sorted(cache.programs))}; steps shared: "
+        f"{len(cache.steps)}), {segments} bytes in the pool's segments, "
+        f"{whole / max(peaks.values()):.3f} x the larger eager peak; its static buffers outside "
+        f"the pool {sum(statics.values())} bytes [{smi}]")
 
     ops = {
         "64-blob blobs_to_kzg_commitments": (lambda k: k.blobs_to_kzg_commitments(blobs),

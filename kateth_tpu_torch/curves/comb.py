@@ -46,16 +46,18 @@ def comb_dims(h: int) -> int:
 
 def column_digits(scalar_digits: torch.Tensor, h: int, d: int) -> torch.Tensor:
     """Plain Fr digit planes (..., 16) -> (d, ...) comb column values:
-    column t packs bits {t, t + d, ..., t + (h-1) d} into an h-bit index."""
-    shifts = torch.arange(L.DIGIT_BITS, device=scalar_digits.device)
-    bits = (scalar_digits[..., :, None] >> shifts) & 1
-    bits = bits.reshape(*scalar_digits.shape[:-1], -1)  # (..., 256) LSB first
-    pad = h * d - bits.shape[-1]
-    if pad > 0:
-        bits = torch.nn.functional.pad(bits, (0, pad))
-    bits = bits[..., : h * d].reshape(*bits.shape[:-1], h, d)
-    weights = (1 << torch.arange(h, device=bits.device))[:, None]
-    return (bits * weights).sum(-2).movedim(-1, 0)
+    column t packs bits {t, t + d, ..., t + (h-1) d} into an h-bit index,
+    the bits at min(h d, 256) and above read as 0.  Row k of every column
+    comes straight from the digit planes (msm.bit_fields), so each step
+    works on one (d, ...) tensor and no plane of single bits is built."""
+    n_bits = min(h * d, L.DIGIT_BITS * scalar_digits.shape[-1])
+    t = torch.arange(d, device=scalar_digits.device)
+    cols = msm.bit_fields(scalar_digits, t, 1, n_bits)
+    for k in range(1, h):
+        bits = msm.bit_fields(scalar_digits, t + k * d, 1, n_bits)
+        bits <<= k
+        cols |= bits
+    return cols
 
 
 def _tree_inv(spec: L.FieldSpec, x: torch.Tensor) -> torch.Tensor:
@@ -134,7 +136,7 @@ def commit(table, scalar_digits: torch.Tensor, h: int, n: int):
     dev = scalar_digits.device
     # contiguous (d, B, n), so that the gathered rows come out in K8's
     # order and its wrapper copies nothing (2.2 GB at 64 mainnet blobs)
-    cols = column_digits(scalar_digits, h, d).reshape(d, -1, n).contiguous()
+    cols = column_digits(scalar_digits, h, d).reshape(d, -1, n)
     idx = cols + (torch.arange(n, device=dev) << h)  # each point's row
     chains = cuda_msm.comb_chain_sum(table_x[idx], table_y[idx], cols != 0, g)  # (d, B, n/g)
     sums = msm.halving_sum(F1, chains, axis=2)  # (d, B)

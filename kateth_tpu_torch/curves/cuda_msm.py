@@ -27,6 +27,9 @@ F1 = ops.FP_FIELD
 CHAIN = 8
 #: comb rows per chain of the fixed-base commit
 COMB_CHAIN = 32
+#: the slices of the leading rows (blobs) that the chain totals' scan of
+#: prefix_scan_kernel runs over (its docstring says why)
+ROW_SLICES = CHAIN // 2
 
 
 def _chains(c: torch.Tensor, g: int) -> torch.Tensor:
@@ -34,6 +37,13 @@ def _chains(c: torch.Tensor, g: int) -> torch.Tensor:
     if c.shape[-2] % g:
         raise ValueError(f"the point axis ({c.shape[-2]}) is not a multiple of g = {g}")
     return c.reshape(*c.shape[:-2], c.shape[-2] // g, g, FP.n_digits)
+
+
+def row_slices(rows: int) -> list[slice]:
+    """`rows` leading rows cut into ROW_SLICES slices of equal size (the
+    last one shorter; one row a slice below ROW_SLICES rows)."""
+    step = max(1, -(-rows // ROW_SLICES))
+    return [slice(r, r + step) for r in range(0, rows, step)]
 
 
 def _aligned16(c: torch.Tensor) -> torch.Tensor:
@@ -73,23 +83,42 @@ def chain_prefix(p, g: int):
     return tuple(outs)
 
 
-def prefix_scan_kernel(p):
-    """Inclusive prefix sum of G1 points along axis -2 by the two-level
-    scan: K7's sequential sums within chains of CHAIN points, a short
-    Hillis-Steele exclusive scan of the chain totals, and one offset add.
-    The point axis must be a power of two."""
-    n = p[0].shape[-2]
-    g = min(CHAIN, n)
-    within = tuple(_chains(c, g) for c in chain_prefix(p, g))  # (..., G, g, 24)
-    totals = tuple(w[..., g - 1, :] for w in within)  # (..., G, 24)
-    incl = msm.prefix_scan(F1, totals, axis=-2)
-    ident = ops.identity(F1, (), p[0].device)
+def prefix_scan_kernel(p, idx: torch.Tensor):
+    """Inclusive prefix sums of G1 points along axis -2 at the indices idx
+    by the two-level scan: K7's sequential sums within chains of CHAIN
+    points, a short Hillis-Steele exclusive scan of the chain totals, and
+    the offset add of each index's chain offset.  p: projective tuple of
+    (..., N, 24), N a power of two; idx: int64 (..., M) indices into the
+    point axis.  Returns the sums at those indices, (..., M, 24).
+
+    A complete addition holds about 100 Fp planes of temporaries a lane
+    (17 KB), against the 3 planes a lane of the points and of K7's output.
+    So the offset add runs on the M gathered lanes only (the windowed MSM
+    reads 2^c sums of each row's N: over all N lanes the addition held 4.4
+    GB at 64 mainnet blobs), and the chain totals' scan, on N / CHAIN
+    lanes a row, runs over ROW_SLICES = CHAIN // 2 slices of the rows,
+    each then holding about 100 / (CHAIN^2 / 2) = 3 planes of N lanes a
+    row, K7's output's size; more slices only add graph nodes.  Every sum is the
+    unsliced full scan's, lane for lane.  The points are released once K7
+    has read them, so pass them in without keeping them."""
+    dev = p[0].device
+    g = min(CHAIN, p[0].shape[-2])
+    within = chain_prefix(p, g)  # (..., N, 24)
+    del p
+    totals = tuple(_chains(w, g)[..., g - 1, :] for w in within)  # (..., G, 24)
+    rows = totals[0].shape[:-2].numel()
+    flat = tuple(t.reshape(rows, *t.shape[-2:]) for t in totals)
+    parts = [msm.prefix_scan(F1, tuple(t[s] for t in flat), axis=-2) for s in row_slices(rows)]
+    incl = tuple(torch.cat([q[i] for q in parts]).reshape(totals[i].shape) for i in range(3))
+    ident = ops.identity(F1, (), dev)
     excl = tuple(
         torch.cat([i.expand(*t.shape[:-2], 1, FP.n_digits), t[..., :-1, :]], dim=-2)
         for i, t in zip(ident, incl)
     )
-    combined = ops.padd(F1, within, tuple(e[..., None, :].expand_as(w) for e, w in zip(excl, within)))
-    return tuple(c.reshape(p[0].shape) for c in combined)
+    lane = idx[..., None]
+    chain = lane // g
+    return ops.padd(F1, tuple(torch.take_along_dim(w, lane, dim=-2) for w in within),
+                    tuple(torch.take_along_dim(e, chain, dim=-2) for e in excl))
 
 
 # --- K8 ---------------------------------------------------------------------

@@ -20,6 +20,9 @@ from ..fields import limbs as L
 from . import ops
 from .ops import CurveField
 
+#: the scalar bits the windows cover (Fr elements are below 2^255)
+N_BITS = 255
+
 
 def prefix_scan(F: CurveField, p, axis: int = 0):
     """Inclusive prefix sum of points along `axis` (Hillis-Steele: log2(n)
@@ -81,17 +84,41 @@ def scalar_mul_const(F: CurveField, p, k: int):
     return acc
 
 
-def window_digits(scalar_digits: torch.Tensor, c: int, n_bits: int = 255) -> torch.Tensor:
+def bit_fields(scalar_digits: torch.Tensor, starts: torch.Tensor, width: int, n_bits: int) -> torch.Tensor:
+    """Plain Fr digit planes (..., 16) -> (F, ...) bit fields: field f holds
+    the `width` bits (width <= 16) of each scalar from bit starts[f] on,
+    LSB first, the bits at n_bits (<= 256) and above read as 0; starts:
+    (F,) int64 bit offsets on the digits' device.
+
+    A field spans at most two 16-bit digits k and k + 1 (k = start // 16),
+    so it is ((d[k] >> s) | (d[k + 1] << (16 - s))) & mask, s = start % 16,
+    read straight from the digit planes: every intermediate has the
+    output's shape, and no plane of single bits is built."""
+    if not 1 <= width <= L.DIGIT_BITS:
+        raise ValueError(f"bit field width {width} is not in 1 .. {L.DIGIT_BITS}")
+    view = (-1,) + (1,) * (scalar_digits.ndim - 1)
+    top = scalar_digits.shape[-1] - 1
+    shift = (starts % L.DIGIT_BITS).view(view)
+    mask = ((1 << (n_bits - starts).clamp(0, width)) - 1).view(view)
+    # bits past the last digit lie at or above n_bits, so the digit
+    # indices stop at the last digit
+    k = (starts // L.DIGIT_BITS).clamp(max=top)
+    planes = scalar_digits.movedim(-1, 0)  # (16, ...), a view
+    out = planes.index_select(0, k)  # (F, ...)
+    out >>= shift
+    if width > 1:  # a single bit never reaches the next digit
+        hi = planes.index_select(0, (k + 1).clamp(max=top))
+        hi <<= L.DIGIT_BITS - shift
+        out |= hi
+    out &= mask
+    return out
+
+
+def window_digits(scalar_digits: torch.Tensor, c: int, n_bits: int = N_BITS) -> torch.Tensor:
     """Plain Fr digit planes (..., 16) -> (W, ...) c-bit window values
-    (least significant window first), W = ceil(n_bits / c)."""
-    shifts = torch.arange(L.DIGIT_BITS, device=scalar_digits.device)
-    bits = (scalar_digits[..., :, None] >> shifts) & 1  # (..., 16, 16) LSB first
-    bits = bits.reshape(*scalar_digits.shape[:-1], -1)[..., :n_bits]
+    (least significant window first), W = ceil(n_bits / c), c <= 16."""
     W = -(-n_bits // c)
-    bits = torch.nn.functional.pad(bits, (0, W * c - n_bits))
-    bits = bits.reshape(*bits.shape[:-1], W, c)
-    digits = (bits << torch.arange(c, device=bits.device)).sum(-1)  # (..., W)
-    return digits.movedim(-1, 0)
+    return bit_fields(scalar_digits, torch.arange(W, device=scalar_digits.device) * c, c, n_bits)
 
 
 def _window_sum(points, dig: torch.Tensor, c: int):
@@ -106,16 +133,21 @@ def _window_sum(points, dig: torch.Tensor, c: int):
     batch = dig.shape[:-1]
     order = torch.argsort(dig, dim=-1, stable=True)
     sorted_digits = torch.take_along_dim(dig, order, dim=-1)
-    gathered = tuple(comp[order] for comp in points)  # (*batch, N, 24)
-    prefix = cuda_msm.prefix_scan_kernel(gathered)
-    total = tuple(a[..., -1, :] for a in prefix)
 
     # c_j = #digits < j for j = 1 .. B-1; the boundary prefix is the one
     # just before bucket j starts, the identity when no digit is below j
     j = torch.arange(1, B, device=dig.device).expand(*batch, B - 1).contiguous()
     c_j = torch.searchsorted(sorted_digits.contiguous(), j)
-    idx = (c_j - 1).clamp(min=0)[..., None]
-    boundary = tuple(torch.take_along_dim(a, idx, dim=-2) for a in prefix)
+    idx = (c_j - 1).clamp(min=0)
+    last = torch.full_like(idx[..., :1], dig.shape[-1] - 1)
+    # the prefix sums of the sorted points at the B - 1 boundaries and at
+    # the last point (the total), from a scan whose offset add runs on
+    # these B lanes a row alone; the gathered points go in unnamed, so
+    # that the scan frees them once K7 has read them
+    sums = cuda_msm.prefix_scan_kernel(tuple(comp[order] for comp in points),
+                                       torch.cat([idx, last], dim=-1))
+    total = tuple(a[..., -1, :] for a in sums)
+    boundary = tuple(a[..., :-1, :] for a in sums)
     boundary = ops.pselect(F, c_j == 0, ops.identity(F, (*batch, B - 1), dig.device), boundary)
 
     # window sum = (B - 1) total - sum_j boundary_j (telescoping)
@@ -135,9 +167,13 @@ def window_start(scalar_digits: torch.Tensor, n_points: int, c: int):
     accumulator, a projective tuple of (*batch, 24), and the window digits
     of the PLAIN Fr digits (*batch, N, 16), most significant window first,
     (W, *batch, n_points), zero for the n_points - N padding points."""
-    digits = window_digits(scalar_digits, c)  # (W, *batch, N), LSB window first
-    digits = torch.nn.functional.pad(digits, (0, n_points - scalar_digits.shape[-2]))
-    return ops.identity(ops.FP_FIELD, scalar_digits.shape[:-2], digits.device), digits.flip(0)
+    n = scalar_digits.shape[-2]
+    if n_points > n:  # zero scalars for the padding points
+        scalar_digits = torch.nn.functional.pad(scalar_digits, (0, 0, 0, n_points - n))
+    W = -(-N_BITS // c)
+    starts = torch.arange(W - 1, -1, -1, device=scalar_digits.device) * c  # MSB window first
+    digits = bit_fields(scalar_digits, starts, c, N_BITS)
+    return ops.identity(ops.FP_FIELD, scalar_digits.shape[:-2], digits.device), digits
 
 
 def window_step(points, acc, dig: torch.Tensor, c: int):

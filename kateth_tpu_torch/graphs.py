@@ -20,7 +20,10 @@ once a window, so a graph holds one window's operations and the pool one
 window's working set, not all W windows'.  Between step replays, copies
 on the cache's stream move the step's output carry into its static input
 and the next window's digits into its static x; nothing reads back to the
-host.
+host.  The commit and the proof loop the same step over the same points,
+so the cache captures a named step once per batch size and their scans
+share it (GraphCache.steps).  The head's outputs, which must outlive the
+step replays, go to static buffers outside the pool.
 
 A `GraphCache` holds every graph of one Kzg: one lock, one stream and one
 memory pool for all its programs.  A replay reads its graph's static input
@@ -30,8 +33,9 @@ stream waits for the caller's current stream before the copies in, and the
 caller's stream waits for it after the copies out.  Threads may share a
 Kzg, one committing while another verifies, and a caller may change its
 current stream between calls.  All graphs share the pool: their replays
-never overlap, and a replay's outputs are copied out before the next replay
-of any program starts.
+never overlap, and every output a graph leaves in the pool is copied out
+(or into a step's static inputs) before the next replay of any graph
+starts, since that replay's temporaries may reuse its blocks.
 
 A program in the cache must stay free of host syncs and of uploads (no
 `bool(t)`, `.item()`, `.cpu()`, boolean-mask indexing or
@@ -80,10 +84,14 @@ class CapturedBatch:
 @dataclass
 class CapturedScan:
     """One captured protocol.Scan at one batch size: the head's graph
-    (outputs: the carry's tensors, xs, then the extras), the step's
+    (outputs, static buffers outside the pool: the carry's tensors, xs,
+    then the extras), the step's
     (inputs: the carry's static tensors, then the static x; outputs: the
     next carry) and the tail's (inputs: the carry's static tensors, then
-    the head's extras).  `inputs` and `outputs` are the program's."""
+    the head's extras).  `inputs` and `outputs` are the program's.  The
+    step may be shared with other scans of the cache (GraphCache.steps):
+    its static carry and x are then theirs too, which is safe because every
+    replay copies its own carry and x into them under the cache's lock."""
 
     head: CapturedBatch
     step: CapturedBatch
@@ -136,11 +144,13 @@ class CapturedScan:
 
 class GraphCache:
     """The graphs of one Kzg on one CUDA device, by program name
-    (`programs`) and, within a program, by batch size."""
+    (`programs`) and, within a program, by batch size; and the step graphs
+    that scans share, by step name and batch size (`steps`)."""
 
     def __init__(self, device):
         self.device = torch.device(device)
         self.programs: dict[str, ProgramGraphs] = {}
+        self.steps: dict[tuple[str, int], CapturedBatch] = {}
         self.lock = threading.Lock()
         self.stream = torch.cuda.Stream(self.device)
         self.pool = torch.cuda.graph_pool_handle()
@@ -256,22 +266,53 @@ class ScanGraphs(ProgramGraphs):
     def _capture(self, inputs, caller) -> CapturedScan:
         """Capture the head on static copies of `inputs`, the step on
         static buffers of the carry and of one x, and the tail on the
-        step's static carry and the head's extras.  The Scan runs once
-        before, eagerly on the cache's stream, with one step (that builds
-        the kernels and puts every constant on the device); those launches
-        are counted, the captures' are not."""
-        scan, stream = self.fn, self.cache.stream
+        step's static carry and the head's extras.  A scan whose step has a
+        name takes the cache's step of that name and batch size where
+        another scan captured it, and captures it for both otherwise.
+
+        The head's graph copies its outputs into static buffers outside
+        the pool: they must outlive W step replays, and a step captured
+        before this head (this scan's own or a shared one) may run its
+        temporaries through the pool blocks this head's capture is given;
+        every other output in the pool is read before another graph
+        replays.  So the step is captured first: its working set is the
+        largest, and the head's and the tail's temporaries then fit in the
+        blocks it leaves free.
+
+        The Scan runs once before, eagerly on the cache's stream, with one
+        step where the step is captured here (that builds the kernels and
+        puts every constant on the device); those launches are counted,
+        the captures' are not."""
+        scan, cache, stream = self.fn, self.cache, self.cache.stream
+        key = (scan.step_name, inputs[0].shape[0]) if scan.step_name else None
+        step = cache.steps.get(key)
         static_inputs = self._static_inputs(inputs, caller)
         with torch.cuda.stream(stream):
             carry, xs, extras = scan.head(*static_inputs)
-            scan.tail(scan.step(carry, xs[0]), *extras)
             k = len(carry)
-            statics = [torch.empty_like(c) for c in carry] + [torch.empty_like(xs[0])]
+            if step is None:
+                scan.tail(scan.step(carry, xs[0]), *extras)
+                statics = [torch.empty_like(c) for c in carry] + [torch.empty_like(xs[0])]
+            else:
+                scan.tail(carry, *extras)
+                if not all(t.shape == c.shape and t.dtype == c.dtype
+                           for t, c in zip(step.inputs, (*carry, xs[0]))):
+                    raise ValueError(f"step {scan.step_name!r} was captured for another carry or x")
+            head_outputs = [torch.empty_like(t) for t in (*carry, xs, *extras)]
         del carry, xs, extras
-        head = self._capture_graph(lambda *a: _flat_head(scan.head(*a)), static_inputs)
-        step = self._capture_graph(lambda *a: scan.step(tuple(a[:k]), a[k]), statics)
+
+        def head_fn(*a):
+            for static, t in zip(head_outputs, _flat_head(scan.head(*a))):
+                static.copy_(t)
+            return head_outputs
+
+        if step is None:
+            step = self._capture_graph(lambda *a: scan.step(tuple(a[:k]), a[k]), statics)
+            if key:
+                cache.steps[key] = step
+        head = self._capture_graph(head_fn, static_inputs)
         tail = self._capture_graph(lambda *a: scan.tail(tuple(a[:k]), *a[k:]),
-                                   statics[:k] + list(head.outputs[k + 1:]))
+                                   step.inputs[:k] + list(head.outputs[k + 1:]))
         caller.wait_stream(stream)
         return CapturedScan(head, step, tail)
 

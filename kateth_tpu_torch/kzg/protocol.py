@@ -43,7 +43,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from ..curves import comb, compress, decompress, ops
+from ..curves import comb, compress, cuda_msm, decompress, ops
 from ..curves import g1 as g1mod
 from ..curves import g2 as g2mod
 from ..curves import msm
@@ -285,11 +285,13 @@ class Scan:
     *extras) -> the outputs; carry and extras are tuples of tensors, xs a
     tensor.  Called, it runs eagerly; graphs.py captures the head, the step
     and the tail as three CUDA graphs and replays the step's graph once an
-    x."""
+    x.  Scans of one graph cache whose `step_name` is the same run the same
+    step on the same tensors, so they share one step graph a batch size."""
 
     head: Callable
     step: Callable
     tail: Callable
+    step_name: str | None = None
 
     def __call__(self, *inputs):
         carry, xs, extras = self.head(*inputs)
@@ -305,13 +307,25 @@ def _commit_head(blob_bytes, n_points: int, window: int):
 
 
 def _prove_head(blob_bytes, z_plain, roots, inv_roots, n_points: int, window: int):
-    ok, y_plain, q_plain = quotient_chunk(blob_bytes, z_plain, roots, inv_roots)
+    # quotient_chunk over the window step's row slices: its full-width Fr
+    # temporaries (0.27 GB blocks at 64 mainnet blobs) then fit in the
+    # pool blocks that the step's capture leaves free; each blob's values
+    # are its own
+    parts = [quotient_chunk(blob_bytes[s], z_plain[s], roots, inv_roots)
+             for s in cuda_msm.row_slices(blob_bytes.shape[0])]
+    ok, y_plain, q_plain = (torch.cat(t) for t in zip(*parts))
     acc, digits = msm.window_start(q_plain, n_points, window)
     return acc, digits, (ok, y_plain)
 
 
 def _compress_tail(acc, *extras):
     return (*extras, compress.g1_compress_planes(acc))
+
+
+def _window_step_name(window: int) -> str:
+    """The step name of commit_scan and prove_scan: both step
+    msm.window_step over the same padded setup points."""
+    return f"msm.window_step c={window}"
 
 
 def commit_scan(g1_points, window: int = 8) -> Scan:
@@ -322,17 +336,20 @@ def commit_scan(g1_points, window: int = 8) -> Scan:
     outputs bit for bit."""
     points = msm.pad_points(g1_points)
     return Scan(functools.partial(_commit_head, n_points=points[0].shape[0], window=window),
-                functools.partial(msm.window_step, points, c=window), _compress_tail)
+                functools.partial(msm.window_step, points, c=window), _compress_tail,
+                _window_step_name(window))
 
 
 def prove_scan(g1_points, roots, inv_roots, window: int = 8) -> Scan:
     """prove_chunk with commit_msm bound, as a Scan over the windows of q:
-    the head is quotient_chunk and msm.window_start of q, the step and the
+    the head is quotient_chunk and msm.window_start of q, the step (of
+    commit_scan's name: a graph cache captures it once for both) and the
     tail are commit_scan's.  Gives prove_chunk's outputs bit for bit."""
     points = msm.pad_points(g1_points)
     return Scan(functools.partial(_prove_head, roots=roots, inv_roots=inv_roots,
                                   n_points=points[0].shape[0], window=window),
-                functools.partial(msm.window_step, points, c=window), _compress_tail)
+                functools.partial(msm.window_step, points, c=window), _compress_tail,
+                _window_step_name(window))
 
 
 #: the torch dtype of each numpy dtype that to_device takes

@@ -14,7 +14,9 @@ The generic cache (GraphCache, ProgramGraphs) is driven the same way with
 several programs sharing one stand-in pool, and so are scan programs
 (ScanGraphs: a head, a step replayed once a window, a tail), through a
 stand-in for ProgramGraphs._capture_graph, the one method every capture
-goes through, so the scans' own capture and replay logic runs here.
+goes through, so the scans' own capture and replay logic runs here; there
+a replay overwrites every output that another graph left in the shared
+pool, as its temporaries may.
 """
 
 import contextlib
@@ -23,6 +25,8 @@ import time
 
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 
 from kateth_tpu_torch import cuda_lib, graphs
 
@@ -350,16 +354,25 @@ def make_scan(log):
 class ScratchGraph:
     """Stands in for a captured graph of fn whose outputs pass through a
     memory pool shared by every graph of the cache (`scratch`): a replay
-    runs fn on the static inputs (taking back out the launches its Python
-    wrappers count, as a replay runs none of them), writes the outputs to
-    the scratch, sleeps, and copies what the scratch then holds into the
-    static outputs.  Two replays that overlapped would give each other's
-    values."""
+    first overwrites (bitwise not) every output that another graph left in
+    the pool (`pool_outputs`: the outputs its capture made rather than
+    static buffers), as a replay's temporaries may take those blocks;
+    then it runs fn on the static inputs (taking back out the launches its
+    Python wrappers count, as a replay runs none of them), writes the
+    outputs to the scratch, sleeps, and copies what the scratch then holds
+    into the static outputs.  Two replays that overlapped would give each
+    other's values, and an output in the pool read after another graph's
+    replay would be wrong."""
 
-    def __init__(self, fn, inputs, outputs, scratch):
+    def __init__(self, fn, inputs, outputs, scratch, pool_outputs):
         self.fn, self.inputs, self.outputs, self.scratch = fn, inputs, outputs, scratch
+        self.pool_outputs = pool_outputs
 
     def replay(self) -> None:
+        for graph, outs in self.pool_outputs:
+            if graph is not self:
+                for out in outs:
+                    out.bitwise_not_()
         before = cuda_lib.launch_counts()
         values = self.fn(*self.inputs)
         cuda_lib.add_launch_counts(launch_diff(before, cuda_lib.launch_counts()), -1)
@@ -372,20 +385,44 @@ class ScratchGraph:
             o += out.numel()
 
 
+class NewStorages(TorchDispatchMode):
+    """Records the storages of the tensors that operations return in new
+    memory (not a view of or an in-place result on one of their inputs)."""
+
+    def __init__(self):
+        super().__init__()
+        self.made = set()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        given = {t.untyped_storage().data_ptr() for t in tree_leaves((args, kwargs))
+                 if isinstance(t, torch.Tensor)}
+        self.made.update(t.untyped_storage().data_ptr() for t in tree_leaves(out)
+                         if isinstance(t, torch.Tensor)
+                         and t.untyped_storage().data_ptr() not in given)
+        return out
+
+
 @pytest.fixture
 def scratch_capture(monkeypatch):
     """ProgramGraphs._capture_graph (every graph a ProgramGraphs or a
     ScanGraphs captures) replaced by one that runs fn once, as a capture
     records it, takes its launches back out as a capture does, and makes a
-    ScratchGraph over one scratch buffer for the whole process."""
+    ScratchGraph over one scratch buffer for the whole process; the
+    outputs that fn made (not static buffers it wrote) are the graph's
+    outputs in the pool."""
     scratch = torch.zeros(1 << 16, dtype=torch.int64)
+    pool_outputs = []
 
     def capture_graph(self, fn, static_inputs):
         before = cuda_lib.launch_counts()
-        outputs = tuple(fn(*static_inputs))
+        with NewStorages() as mode:
+            outputs = tuple(fn(*static_inputs))
         launches = launch_diff(before, cuda_lib.launch_counts())
         cuda_lib.add_launch_counts(launches, -1)
-        graph = ScratchGraph(fn, list(static_inputs), outputs, scratch)
+        graph = ScratchGraph(fn, list(static_inputs), outputs, scratch, pool_outputs)
+        pool_outputs.append((graph, [o for o in outputs
+                                     if o.untyped_storage().data_ptr() in mode.made]))
         return graphs.CapturedBatch(graph, list(static_inputs), outputs, launches, 0, 0)
 
     monkeypatch.setattr(graphs.ProgramGraphs, "_capture_graph", capture_graph)
@@ -514,4 +551,13 @@ def test_windowed_kzg_runs_commit_and_prove_through_the_cache(fake_cuda, scratch
     for name in ("commit", "prove"):
         assert isinstance(programs[name], graphs.ScanGraphs)
         captured = programs[name].graphs[4]  # 3 blobs: one chunk of 4
-        assert captured.replays == 1 and captured.step.replays == 32
+        # one step graph, shared: 32 windows of the commit, 32 of the proof
+        assert captured.replays == 1 and captured.step.replays == 64
+    step = programs["commit"].graphs[4].step
+    assert programs["prove"].graphs[4].step is step
+    # another batch size captures a step of its own
+    assert kzg.blobs_to_kzg_commitments(blobs[:1]) == want[0][:1]
+    other = programs["commit"].graphs[2].step
+    assert other is not step and other.replays == 32 and step.replays == 64
+    assert sorted(kzg._graphs.steps.items(), key=lambda kv: kv[0][1]) == [
+        (("msm.window_step c=8", 2), other), (("msm.window_step c=8", 4), step)]

@@ -77,15 +77,35 @@ def test_chain_prefix_plain_matches_jax_padd():
 
 def test_two_level_scan_matches_jax_prefix_scan():
     """The two-level scan (K7's plain version, chain-total scan, offset
-    add) against JAX msm.prefix_scan over 32 points, equal as points."""
+    add) at every index against JAX msm.prefix_scan over 32 points, equal
+    as points."""
     P = tuple(np.stack([c, c[::-1]]) for c in g1.from_ints(random_points(32)))  # (2, 32, 24)
-    got = cuda_msm.prefix_scan_kernel(tuple(torch.as_tensor(c) for c in P))
+    got = cuda_msm.prefix_scan_kernel(tuple(torch.as_tensor(c) for c in P),
+                                      torch.arange(32).expand(2, 32))
 
     def jax_same(p, q):
         return jops.peq(jops.FP_FIELD, jmsm.prefix_scan(jops.FP_FIELD, p, axis=1), q)
 
     same = jax.jit(jax_same)(j(P), j(c.numpy() for c in got))
     assert np.asarray(same).shape == (2, 32) and np.asarray(same).all()
+
+
+def test_two_level_scan_at_indices_is_the_full_scan_gathered():
+    """prefix_scan_kernel at some indices (repeated, unordered, the ends)
+    of 2 rows of 16 points: the sums of the two-level scan run unsliced
+    over every point (K7's plain version, one Hillis-Steele scan of all
+    the chain totals, the offset add on every lane) at those indices, bit
+    for bit."""
+    P = tuple(torch.as_tensor(np.stack([c, c[::-1]])) for c in g1.from_ints(random_points(16)))
+    idx = torch.tensor([[15, 0, 7, 8, 8, 3], [1, 9, 9, 15, 2, 0]])
+    within = tuple(cuda_msm._chains(c, 8) for c in cuda_msm.chain_prefix_plain(P, 8))
+    incl = msm.prefix_scan(F1, tuple(w[..., 7, :] for w in within), axis=-2)
+    excl = tuple(torch.cat([i.expand(2, 1, 24), t[:, :-1]], dim=1)
+                 for i, t in zip(ops.identity(F1, ()), incl))
+    full = ops.padd(F1, within, tuple(e[..., None, :].expand_as(w) for e, w in zip(excl, within)))
+    got = cuda_msm.prefix_scan_kernel(P, idx)
+    for g, f in zip(got, full):
+        assert torch.equal(g, torch.take_along_dim(f.reshape(2, 16, 24), idx[..., None], dim=-2))
 
 
 def test_scalar_mul_const_matches_oracle():

@@ -367,3 +367,18 @@ def test_scan_part_constants_are_made_once(scan_parts, name, monkeypatch):
     got = fn(*inputs)
     monkeypatch.undo()
     assert_same(got, want)
+
+
+def test_window_step_matches_the_full_prefix_scan(scan_parts, monkeypatch):
+    """The window step, whose two-level scan adds the chain offsets at the
+    2^c - 1 bucket boundaries and the last point alone, gives bit for bit
+    the step that gathers those sums from the full prefix scan."""
+    scan = cuda_msm.prefix_scan_kernel
+
+    def full_then_gather(p, idx):
+        every = torch.arange(p[0].shape[-2]).expand(p[0].shape[:-1])
+        return tuple(torch.take_along_dim(a, idx[..., None], dim=-2) for a in scan(p, every))
+
+    fn, inputs, want = scan_parts["window step"]
+    monkeypatch.setattr(cuda_msm, "prefix_scan_kernel", full_then_gather)
+    assert_same(fn(*inputs), want)

@@ -14,7 +14,8 @@ host clock between two syncs, summed over the loop it sits in:
      one CUDA graph) and compute_kzg_proofs' evaluation and quotient;
   2. the windowed Pippenger (comb_h = 0): one commit by its windows: the
      stable argsort and gather, kernel K7 alone, the rest of the two-level
-     scan, the bucket-boundary gather, the halving sum, the (2^c - 1)
+     scan (its offset add at the bucket boundaries and the last point), the
+     bucket-boundary indices and selects, the halving sum, the (2^c - 1)
      total, and the window sum with the doublings and addition between
      windows;
   3. one traced eager comb commit (torch.profiler): device busy share and
@@ -29,8 +30,8 @@ host clock between two syncs, summed over the loop it sits in:
   5. the same for the windowed commit (comb_h = 0): the device time of its
      head (blob decode and window digits), of each stage of every window
      step (the doublings, the argsort and gather, K7, the Hillis-Steele
-     scan of the chain totals, the offset add of the two-level scan, the
-     bucket-boundary gather, the halving sum, the
+     scan of the chain totals, the bucket-boundary indices and selects, the
+     offset add of the two-level scan at the boundaries, the halving sum, the
      (2^c - 1) total, the window sum and its addition), each traced alone
      after a warm-up and summed over the W windows, and of its tail
      (compression): the device work the windowed commit's graph replays
@@ -39,11 +40,25 @@ host clock between two syncs, summed over the loop it sits in:
 The replays are checked against the library's own commits.  Prints one
 JSON object with the card's name and power limit.
 
-Run from the repository root: python3 tools/profile_torch_commit.py
+With --memory it measures device memory instead, on eager twins (a Kzg
+with no graph cache, chip_smoke.eager_twin), each call warmed up once and
+then run after a sync, an empty_cache and a reset of the peak statistics:
+the peak bytes allocated (and reserved) above the baseline of a 64-blob
+windowed commit and of 64-blob windowed compute_blob_kzg_proofs
+(comb_h = 0), and of a 64-blob comb commit (the table apart); and a
+memory-history snapshot of one eager msm.window_step at 64 blobs: its
+peak, and the blocks live at the peak summed by the line of the port
+that allocated them (the innermost frame in kateth_tpu_torch/) and by the
+line of curves/msm.py or curves/cuda_msm.py it was called from.
+
+Run from the root of a checkout: python3 tools/profile_torch_commit.py
+[--memory].  The tool imports the checkout it sits in, so a copy of it in
+another checkout's tools/ measures that checkout.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import subprocess
@@ -54,7 +69,112 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 
+def window_step_snapshot(points, acc, dig, c: int, dev) -> dict:
+    """One eager msm.window_step under torch.cuda.memory's history: its
+    peak allocated bytes above the baseline, and the blocks it allocated
+    that are live at that peak, summed by the allocating line."""
+    import torch
+
+    from kateth_tpu_torch.curves import msm
+
+    msm.window_step(points, acc, dig, c)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.memory._record_memory_history(enabled="all", context="all", stacks="python")
+    try:
+        msm.window_step(points, acc, dig, c)
+        torch.cuda.synchronize()
+        snap = torch.cuda.memory._snapshot()
+    finally:
+        torch.cuda.memory._record_memory_history(enabled=None)
+    peak = torch.cuda.max_memory_allocated(dev) - base
+
+    def where(frames):
+        """(innermost port line, innermost line of the step's own modules)."""
+        port = [f for f in frames if "kateth_tpu_torch" in f["filename"]]
+        own = [f for f in port if f["filename"].endswith(("curves/msm.py", "curves/cuda_msm.py"))]
+
+        def name(f):
+            path = f["filename"][f["filename"].rindex("kateth_tpu_torch"):]
+            return f"{path}:{f['line']} {f['name']}"
+
+        return (name(port[0]) if port else "?", name(own[0]) if own else "?")
+
+    live, cur, top, at_top = {}, 0, 0, {}
+    for ev in snap["device_traces"][torch.device(dev).index or 0]:
+        if ev["action"] == "alloc":
+            live[ev["addr"]] = (ev["size"], ev.get("frames", []))
+            cur += ev["size"]
+            if cur > top:
+                top, at_top = cur, dict(live)
+        elif ev["action"] in ("free_requested", "free_completed") and ev["addr"] in live:
+            cur -= live.pop(ev["addr"])[0]
+    by_line = {}
+    for size, frames in at_top.values():
+        site, step_line = where(frames)
+        entry = by_line.setdefault((step_line, site), [0, 0])
+        entry[0] += size
+        entry[1] += 1
+    blocks = sorted(by_line.items(), key=lambda kv: -kv[1][0])
+    return {"peak_allocated_bytes": peak, "trace_peak_bytes": top,
+            "live_at_peak": [{"step_line": k[0], "allocated_at": k[1], "bytes": v[0], "blocks": v[1]}
+                             for k, v in blocks[:20]],
+            "live_at_peak_other_bytes": sum(v[0] for _, v in blocks[20:])}
+
+
+def memory(kzg, smi: str, dev) -> dict:
+    """The --memory measurements (see the module docstring)."""
+    from dataclasses import replace
+
+    import torch
+
+    import chip_smoke
+    from kateth_tpu_torch.curves import msm
+    from kateth_tpu_torch.kzg import Kzg
+
+    case = chip_smoke.parse_vector(os.path.join(
+        chip_smoke.VECTORS, "compute_blob_kzg_proof", "valid_0", "data.yaml"))
+    blob, comm, proof = case["input"]["blob"], case["input"]["commitment"], case["output"]
+    blobs, comms = [blob] * 64, [comm] * 64
+    windowed = chip_smoke.eager_twin(Kzg(replace(kzg.setup, config=replace(kzg.config, comb_h=0))))
+    comb_twin = chip_smoke.eager_twin(kzg)
+
+    def peak(fn, want):
+        if fn() != want:  # warm-up: kernels built, constants on the device
+            raise AssertionError("profile_torch_commit: a wrong result")
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base, base_reserved = torch.cuda.memory_allocated(dev), torch.cuda.memory_reserved(dev)
+        got = fn()
+        torch.cuda.synchronize()
+        if got != want:
+            raise AssertionError("profile_torch_commit: a wrong result")
+        return {"peak_allocated_bytes": torch.cuda.max_memory_allocated(dev) - base,
+                "peak_reserved_bytes": torch.cuda.max_memory_reserved(dev) - base_reserved}
+
+    out = {"device": smi,
+           "eager_windowed_commit_64": peak(lambda: windowed.blobs_to_kzg_commitments(blobs),
+                                            [comm] * 64),
+           "eager_windowed_blob_proofs_64": peak(
+               lambda: windowed.compute_blob_kzg_proofs(blobs, comms), [proof] * 64),
+           "eager_comb_commit_64": peak(lambda: comb_twin.blobs_to_kzg_commitments(blobs),
+                                        [comm] * 64)}
+    c = kzg.config.msm_window
+    elements, _ = windowed._decode_blobs(blobs)
+    points = msm.pad_points(kzg.setup.g1_points)
+    acc, digits = msm.window_start(elements, points[0].shape[0], c)
+    out["eager_window_step_64"] = window_step_snapshot(points, acc, digits[0], c, dev)
+    return out
+
+
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--memory", action="store_true",
+                        help="eager peaks and a window step's memory snapshot instead of times")
+    args = parser.parse_args()
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -74,6 +194,9 @@ def main() -> int:
     F1 = ops.FP_FIELD
     dev = torch.device("cuda")
     kzg = Kzg.load_json(DEFAULT_TRUSTED_SETUP, device=dev)
+    if args.memory:
+        print(json.dumps(memory(kzg, smi, dev), indent=1))
+        return 0
     cfg = kzg.config
     case = chip_smoke.parse_vector(os.path.join(
         chip_smoke.VECTORS, "blob_to_kzg_commitment", "valid_0", "data.yaml"))
@@ -150,16 +273,18 @@ def main() -> int:
         ms["argsort_gather"] += dt
         _, dt = timed(lambda: cuda_msm.chain_prefix(gathered, cuda_msm.CHAIN))
         ms["prefix_scan_K7"] += dt
-        prefix, dt = timed(lambda: cuda_msm.prefix_scan_kernel(gathered))
-        ms["scan_rest"] += dt  # one K7 launch included, taken out below
 
-        def boundary():
+        def boundary_indices():
             c_j = torch.searchsorted(sd.contiguous(), j)
-            idx = (c_j - 1).clamp(min=0)[..., None]
-            bnd = tuple(torch.take_along_dim(a, idx, dim=-2) for a in prefix)
-            return ops.pselect(F1, c_j == 0, ops.identity(F1, (64, B - 1), dev), bnd)
+            last = torch.full_like(c_j[..., :1], sd.shape[-1] - 1)
+            return c_j, torch.cat([(c_j - 1).clamp(min=0), last], dim=-1)
 
-        bnd, dt = timed(boundary)
+        (c_j, idx), dt = timed(boundary_indices)
+        ms["boundary"] += dt
+        prefix, dt = timed(lambda: cuda_msm.prefix_scan_kernel(gathered, idx))
+        ms["scan_rest"] += dt  # one K7 launch included, taken out below
+        bnd, dt = timed(lambda: ops.pselect(F1, c_j == 0, ops.identity(F1, (64, B - 1), dev),
+                                            tuple(a[..., :-1, :] for a in prefix)))
         ms["boundary"] += dt
         gsum, dt = timed(lambda: msm.halving_sum(F1, bnd, axis=-2))
         ms["halving_sum"] += dt
@@ -273,35 +398,38 @@ def main() -> int:
 
         (sd, gathered), part = device_ms(sort_gather)
         add("argsort_gather", part)
-        # cuda_msm.prefix_scan_kernel by its three stages: K7 within the
-        # chains, the Hillis-Steele scan of the chain totals, the offset add
+        # cuda_msm.prefix_scan_kernel at the boundaries by its stages: K7
+        # within the chains, the Hillis-Steele scan of the chain totals, the
+        # offset add on the 2^c gathered lanes a row
         g = cuda_msm.CHAIN
         within, part = device_ms(lambda: cuda_msm.chain_prefix(gathered, g))
         add("prefix_scan_K7", part)
-        within = tuple(cuda_msm._chains(a, g) for a in within)
 
         def totals_scan():
-            incl = msm.prefix_scan(F1, tuple(w[..., g - 1, :] for w in within), axis=-2)
+            totals = tuple(cuda_msm._chains(w, g)[..., g - 1, :] for w in within)
+            incl = msm.prefix_scan(F1, totals, axis=-2)
             return tuple(torch.cat([i.expand(*t.shape[:-2], 1, t.shape[-1]), t[..., :-1, :]], dim=-2)
                          for i, t in zip(ops.identity(F1, (), dev), incl))
 
         excl, part = device_ms(totals_scan)
         add("chain_totals_scan", part)
 
+        def boundary_indices():
+            c_j = torch.searchsorted(sd.contiguous(), j)
+            last = torch.full_like(c_j[..., :1], sd.shape[-1] - 1)
+            return c_j, torch.cat([(c_j - 1).clamp(min=0), last], dim=-1)[..., None]
+
+        (c_j, lane), part = device_ms(boundary_indices)
+        add("boundary", part)
+
         def offset_add():
-            off = tuple(e[..., None, :].expand_as(w) for e, w in zip(excl, within))
-            return tuple(a.reshape(gathered[0].shape) for a in ops.padd(F1, within, off))
+            return ops.padd(F1, tuple(torch.take_along_dim(w, lane, dim=-2) for w in within),
+                            tuple(torch.take_along_dim(e, lane // g, dim=-2) for e in excl))
 
         prefix, part = device_ms(offset_add)
         add("offset_add", part)
-
-        def boundary():
-            c_j = torch.searchsorted(sd.contiguous(), j)
-            idx = (c_j - 1).clamp(min=0)[..., None]
-            bnd = tuple(torch.take_along_dim(a, idx, dim=-2) for a in prefix)
-            return ops.pselect(F1, c_j == 0, ops.identity(F1, (64, B - 1), dev), bnd)
-
-        bnd, part = device_ms(boundary)
+        bnd, part = device_ms(lambda: ops.pselect(F1, c_j == 0, ops.identity(F1, (64, B - 1), dev),
+                                                  tuple(a[..., :-1, :] for a in prefix)))
         add("boundary", part)
         gsum, part = device_ms(lambda: msm.halving_sum(F1, bnd, axis=-2))
         add("halving_sum", part)

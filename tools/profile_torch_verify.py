@@ -26,7 +26,10 @@ CUDA graph where the tree has one), then
      device decode of the setup's 65 G2 points (`decompress.g2_decompress`,
      eager in every tree; median of 3 after a warm-up).  The first three
      are graph replays where the tree captures them, eager calls where it
-     does not;
+     does not; then, on a second Kzg at comb_h = 0, a 64-blob windowed
+     `blobs_to_kzg_commitments` and `compute_blob_kzg_proofs` (median of
+     --reps after the first call, which captures), and the bytes that Kzg's
+     captures newly reserved for its graph pool;
   6. times one call of `limbs.add`, `limbs.sub` and `limbs.mont_mul` (K1)
      on (65, 2, 24) Fp planes, the G2 decode's shape, over 2,000
      unsynchronised calls after 100: the host cost of a plain operation
@@ -301,6 +304,28 @@ def main() -> int:
         assert out == [proof_case["output"]] * 64
         blob_proofs_ms.append(ms)
 
+    from dataclasses import replace
+
+    kzg_w = Kzg(replace(kzg.setup, config=replace(kzg.config, comb_h=0)))
+    windowed = {}
+    for op, fn, want in (
+            ("commit", lambda: kzg_w.blobs_to_kzg_commitments(p_blobs), p_comms),
+            ("blob_proofs", lambda: kzg_w.compute_blob_kzg_proofs(p_blobs, p_comms),
+             [proof_case["output"]] * 64)):
+        runs = []
+        for _ in range(args.reps + 1):  # the first call captures
+            out, ms = timed(fn)
+            assert out == want
+            runs.append(ms)
+        windowed[op] = {"median": statistics.median(runs[1:]), "runs": runs[1:],
+                        "first_call_ms": runs[0]}
+    cache = getattr(kzg_w, "_graphs", None)
+    if cache is not None:
+        captures = {id(g): g for graphs in cache.programs.values() for x in graphs.graphs.values()
+                    for g in ((x.head, x.step, x.tail) if hasattr(x, "step") else (x,))}
+        windowed["pool_reserved_bytes"] = sum(g.pool_reserved_bytes for g in captures.values())
+    del kzg_w, cache
+
     with open(DEFAULT_TRUSTED_SETUP) as f:
         encs = [bytes.fromhex(h[2:]) for h in json.load(f)["g2_monomial"]]
     raw = torch.as_tensor(np.frombuffer(b"".join(encs), dtype=np.uint8).reshape(-1, 96).copy())
@@ -342,6 +367,7 @@ def main() -> int:
                               "first_commit_with_table_build_ms": first_ms},
         "blob_proofs_64_ms": {"median": statistics.median(blob_proofs_ms[1:]),
                               "runs": blob_proofs_ms[1:]},
+        "windowed_64_ms": windowed,
         "g2_decode_65_ms": {"median": statistics.median(g2_ms[1:]), "runs": g2_ms[1:]},
         "fp2_plane_call_us": call_us,
     }, indent=1))
