@@ -51,8 +51,9 @@ Phases, one line each; any failure exits non-zero before the last line:
    - commit and prove with the default comb (comb_h = 12): the first
      commit, which builds the comb table (seconds, peak memory) and
      captures the commit graph, every blob_to_kzg_commitment,
-     compute_kzg_proof and compute_blob_kzg_proof vector (the commit, prove
-     and validate_g1 graphs' replays must rise), and one 64-blob
+     compute_kzg_proof and compute_blob_kzg_proof vector (a single blob
+     runs on 1 lane: the commit, prove and validate_g1 graphs of size 1
+     must replay), and one 64-blob
      blobs_to_kzg_commitments (commitments/s), which must launch K8 once;
    then, apart from the paths' counts: the verify_kzg, commit, prove and
    validate_g1 graphs' outputs held bit for bit against the same programs
@@ -69,12 +70,18 @@ Phases, one line each; any failure exits non-zero before the last line:
    peak working set; two threads on one Kzg, one committing 64 blobs and
    one verifying a valid and a wrong batch; and graph against eager times,
    six runs each in turns, of a single-point verify, a 64-blob commit and a
-   64-blob compute_blob_kzg_proofs;
+   64-blob compute_blob_kzg_proofs; then one block's pass (block_pass):
+   2, 3 and 6 vector blobs (on 2, 4 and 8 lanes) committed, proved at z
+   and proved as blob proofs, and 6 vector triples verified (True, then
+   False with one wrong proof), each output the vectors'; Kzg.lanes over
+   the pass, the size-8 captures' pool bytes, and a 6-blob commit and blob
+   proofs timed;
    - commit and prove with the windowed Pippenger (comb_h = 0), on a
      second Kzg with a graph cache of its own: every blob_to_kzg_commitment,
      compute_kzg_proof and compute_blob_kzg_proof vector through its
-     commit, prove and validate_g1 graphs (the commit and prove scans: a
-     head, a step replayed once a window, a tail; their replays must rise);
+     1-lane commit, prove and validate_g1 graphs (the commit and prove
+     scans: a head, a step replayed once a window, a tail; their replays
+     must rise);
    then, apart from the paths' counts: the windowed commit and prove
    graphs' outputs held bit for bit against an eager twin on a valid
    64-blob commit, valid 64-blob blob proofs, a non-canonical blob element
@@ -86,7 +93,7 @@ Phases, one line each; any failure exits non-zero before the last line:
    for a 64-blob commit and for 64-blob blob proofs beside the windowed
    Kzg's whole pool (its captures' reserves, and its segments); and graph
    against eager times, three runs each in turns, of a 64-blob commit and
-   a 64-blob compute_blob_kzg_proofs;
+   a 64-blob compute_blob_kzg_proofs; then the block pass on this Kzg;
    - form conversion: 64 mainnet blobs (the valid blob_to_kzg_commitment
      vectors' blobs, repeated) through blobs_to_coefficients and back
      through coefficients_to_blobs, which must give the same bytes; two
@@ -1005,15 +1012,15 @@ def windowed_graphs_against_eager(kzg, smi: str) -> None:
          lambda k: k.compute_kzg_proofs(p_blobs, bad_zs), "non-canonical field element"),
     ]
     for name, program, dispatch, call, want in cases:
-        scan = kzg._graphs.programs[program].graphs[64]
-        replays = scan.replays
+        graphs = kzg._graphs.programs[program]
+        replays = sum(g.replays for g in graphs.graphs.values())
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
         try:
             got = dispatch(kzg)
         finally:
             torch.cuda.set_sync_debug_mode("default")
-        if scan.replays == replays:
+        if sum(g.replays for g in graphs.graphs.values()) == replays:
             raise AssertionError(f"windowed graphs: the {name} case did not replay {program}")
         got, ref = flat_tensors(got), flat_tensors(dispatch(eager))
         if len(got) != len(ref) or not all(
@@ -1115,6 +1122,80 @@ def windowed_graphs_against_eager(kzg, smi: str) -> None:
             f"[{smi}]")
 
 
+def block_pass(kzg, label: str, smi: str) -> None:
+    """One block's blobs, prepared as the block's sidecars, on the Kzg's graphs:
+    6 blobs padded to 8 lanes (and 2 and 3 blobs, on 2 and 4 lanes)
+    through blobs_to_kzg_commitments, compute_kzg_proofs and
+    compute_blob_kzg_proofs, and 6 triples through
+    verify_blob_kzg_proof_batch, each output equal to the vendored
+    vectors'; Kzg.lanes over the pass (every program runs 8 lanes for 6
+    blobs), the size-8 captures' pool bytes, and a 6-blob commit and blob
+    proofs timed.  Its launches are no path's."""
+    def valid(op):
+        d = os.path.join(VECTORS, op)
+        cases = [parse_vector(os.path.join(d, name, "data.yaml")) for name in sorted(os.listdir(d))]
+        return [c for c in cases if c["output"] is not None and c["output"] is not False]
+
+    commits = valid("blob_to_kzg_commitment")
+    proofs_at_z = valid("compute_kzg_proof")
+    blob_proofs = valid("compute_blob_kzg_proof")
+    triples = [c["input"] for c in valid("verify_blob_kzg_proof")]
+    wrong = parse_vector(os.path.join(VECTORS, "verify_blob_kzg_proof", "valid_false_wrong_proof",
+                                      "data.yaml"))["input"]
+
+    def pick(cases, n):
+        return [cases[i % len(cases)] for i in range(n)]
+
+    before = {k: list(v) for k, v in kzg.lanes.items()}
+    for n in (2, 3, 6):
+        cs = pick(commits, n)
+        if kzg.blobs_to_kzg_commitments([c["input"]["blob"] for c in cs]) != [c["output"] for c in cs]:
+            raise AssertionError(f"block pass ({label}): {n} commitments differ from the vectors")
+        ps = pick(proofs_at_z, n)
+        proofs, ys = kzg.compute_kzg_proofs([c["input"]["blob"] for c in ps],
+                                            [c["input"]["z"] for c in ps])
+        if [list(p) for p in zip(proofs, ys)] != [c["output"] for c in ps]:
+            raise AssertionError(f"block pass ({label}): {n} proofs at z differ from the vectors")
+        bs = pick(blob_proofs, n)
+        if kzg.compute_blob_kzg_proofs([c["input"]["blob"] for c in bs],
+                                       [c["input"]["commitment"] for c in bs]) != [c["output"] for c in bs]:
+            raise AssertionError(f"block pass ({label}): {n} blob proofs differ from the vectors")
+    block = pick(triples, 6)
+    args = [[t[k] for t in block] for k in ("blob", "commitment", "proof")]
+    bad = [list(a) for a in args]
+    bad[0][4], bad[1][4], bad[2][4] = wrong["blob"], wrong["commitment"], wrong["proof"]
+    verdicts = (kzg.verify_blob_kzg_proof_batch(*args), kzg.verify_blob_kzg_proof_batch(*bad))
+    if verdicts != (True, False):
+        raise AssertionError(f"block pass ({label}): 6-triple verdicts {verdicts}, not (True, False)")
+    lanes = {k: [v[0] - before.get(k, [0, 0])[0], v[1] - before.get(k, [0, 0])[1]]
+             for k, v in kzg.lanes.items()}
+    # 2, 3 and 6 items run on 2, 4 and 8 lanes: 11 given, 14 run a call
+    want = {"commit": [11, 14], "prove": [22, 28], "validate_g1": [11, 14], "verify_batch": [12, 16]}
+    if lanes != want:
+        raise AssertionError(f"block pass ({label}): lanes {lanes}, expected {want}")
+    programs = kzg._graphs.programs
+    for name in ("commit", "prove", "validate_g1", "verify_batch"):
+        x = programs[name].graphs[8]
+        parts = (("head", x.head), ("step", x.step), ("tail", x.tail)) if hasattr(x, "step") else (("", x),)
+        log(f"block pass ({label}): {name} at 8 lanes: " + "; ".join(
+            f"{part + ' ' if part else ''}{g.pool_bytes} bytes allocated, "
+            f"{g.pool_reserved_bytes} bytes newly reserved, {g.nodes} nodes" for part, g in parts)
+            + f" [{smi}]")
+    blobs = [c["input"]["blob"] for c in pick(commits, 6)]
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        comms = kzg.blobs_to_kzg_commitments(blobs)
+        kzg.compute_blob_kzg_proofs(blobs, comms)
+        times.append((time.perf_counter() - t0) * 1e3)
+    log(f"block pass ({label}): 2, 3 and 6 blobs committed and proved (at z and as blob proofs) "
+        f"and 6 triples verified (True, and False with one wrong proof) as the vectors say; "
+        f"lanes given and run over the pass {lanes}; a 6-blob commit and blob proofs "
+        f"{statistics.median(times):.3f} ms (median of 5, runs {min(times):.3f}-{max(times):.3f}); "
+        f"all graphs' lanes since load {kzg.lanes} [{smi}]")
+
+
 def main_path(dev, smi: str) -> tuple[dict, dict]:
     """Each path of the port through its public entry points at mainnet
     width; returns the launches per kernel summed over the paths, and
@@ -1190,7 +1271,7 @@ def main_path(dev, smi: str) -> tuple[dict, dict]:
         first = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated(dev) / 2**30
         rows = kzg.config.n << kzg.config.comb_h
-        log(f"commit: first commit (comb table of {rows} rows built, then the 64-lane commit "
+        log(f"commit: first commit (comb table of {rows} rows built, then the 1-lane commit "
             f"graph captured) {first:.2f} s, peak device memory {peak:.2f} GiB [{smi}]")
         programs = kzg._graphs.programs
         for op, call, names in (
@@ -1199,14 +1280,15 @@ def main_path(dev, smi: str) -> tuple[dict, dict]:
                 ("compute_blob_kzg_proof",
                  lambda i: kzg.compute_blob_kzg_proof(i["blob"], i["commitment"]),
                  ("validate_g1", "prove"))):
-            before = {k: programs[k].graphs[64].replays if k in programs else 0 for k in names}
+            before = {k: programs[k].graphs[1].replays if k in programs else 0 for k in names}
             run_vectors(op, call)
-            after = {k: programs[k].graphs[64].replays for k in names}
+            after = {k: programs[k].graphs[1].replays for k in names}
             if any(after[k] <= before[k] for k in names):
-                raise AssertionError(f"{op}: the vectors did not replay the graphs {names}")
+                raise AssertionError(f"{op}: the vectors did not replay the 1-lane graphs {names}")
             log(f"graph: {op} vectors replayed " + ", ".join(
                 f"{k} {after[k] - before[k]} times" for k in names))
         blobs = [blob] * 64
+        kzg.blobs_to_kzg_commitments(blobs)  # captures the 64-lane graph
         times = []
         for _ in range(3):
             k8 = cuda_lib.LAUNCHES["comb_chain_sum"]
@@ -1222,10 +1304,10 @@ def main_path(dev, smi: str) -> tuple[dict, dict]:
         log(f"commit: 64-blob blobs_to_kzg_commitments {dt:.3f} s (median of 3) = "
             f"{64 / dt:.1f} commitments/s, one K8 launch each [{smi}]")
         for name in ("commit", "prove", "validate_g1"):
-            graph = programs[name].graphs[64]
-            log(f"graph: {name} captured at 64 blobs; pool {graph.pool_bytes} bytes allocated, "
-                f"{graph.pool_reserved_bytes} bytes newly reserved; a replay launches "
-                f"{graph.launches['launches']} [{smi}]")
+            for size, graph in sorted(programs[name].graphs.items()):
+                log(f"graph: {name} captured at {size} blobs; pool {graph.pool_bytes} bytes "
+                    f"allocated, {graph.pool_reserved_bytes} bytes newly reserved; a replay "
+                    f"launches {graph.launches['launches']} [{smi}]")
 
     def commit_prove_msm():
         base = holder["kzg"]
@@ -1237,16 +1319,17 @@ def main_path(dev, smi: str) -> tuple[dict, dict]:
                 ("compute_blob_kzg_proof",
                  lambda i: kzg.compute_blob_kzg_proof(i["blob"], i["commitment"]),
                  ("validate_g1", "prove"))):
-            before = {k: programs[k].graphs[64].replays if k in programs else 0 for k in names}
+            before = {k: programs[k].graphs[1].replays if k in programs else 0 for k in names}
             run_vectors(op, call)
-            after = {k: programs[k].graphs[64].replays for k in names}
+            after = {k: programs[k].graphs[1].replays for k in names}
             if any(after[k] <= before[k] for k in names):
-                raise AssertionError(f"{op} (comb_h = 0): the vectors did not replay the graphs {names}")
+                raise AssertionError(f"{op} (comb_h = 0): the vectors did not replay the 1-lane "
+                                     f"graphs {names}")
             log(f"graph (comb_h = 0): {op} vectors replayed " + ", ".join(
                 f"{k} {after[k] - before[k]} times" for k in names))
         for name in ("commit", "prove"):
-            scan = programs[name].graphs[64]
-            log(f"graph (comb_h = 0): {name} captured at 64 blobs as a head, a step replayed "
+            scan = programs[name].graphs[1]
+            log(f"graph (comb_h = 0): {name} captured at 1 blob as a head, a step replayed "
                 f"{scan.length} times a call and a tail; a call launches {scan.launches['launches']}")
 
     drive("batch verify", batch_verify, totals, k1_buckets)
@@ -1254,6 +1337,7 @@ def main_path(dev, smi: str) -> tuple[dict, dict]:
     drive("single-point verify", single_verify, totals, k1_buckets)
     drive("commit and prove (comb_h = 12)", commit_comb, totals, k1_buckets)
     path_graphs_against_eager(holder["kzg"], holder["batch"], smi)
+    block_pass(holder["kzg"], "comb_h = 12", smi)
     def form_conversion():
         kzg = holder["kzg"]
         d = os.path.join(VECTORS, "blob_to_kzg_commitment")
@@ -1388,6 +1472,7 @@ def main_path(dev, smi: str) -> tuple[dict, dict]:
 
     drive("commit and prove (comb_h = 0)", commit_prove_msm, totals, k1_buckets)
     windowed_graphs_against_eager(holder["kzg_msm"], smi)
+    block_pass(holder["kzg_msm"], "comb_h = 0", smi)
     for path, fn in (("form conversion", form_conversion), ("setup load (uncached)", setup_load),
                      ("sharding (world of 1)", sharding)):
         t0 = time.perf_counter()

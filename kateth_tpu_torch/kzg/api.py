@@ -7,12 +7,13 @@ out-of-subgroup points raise KzgError; `False` is returned only for an
 honest verification failure.  The host prefix (length checks, SHA-256
 Fiat-Shamir challenges, the batch challenge r and its weights) runs in
 Python; the rest runs on the setup's device.  Every batched operation pads
-its batch to a multiple of config.canon_batch (zero blobs, generator
-points), so the device sees a fixed set of shapes.  Host data reaches a
-CUDA device by asynchronous copies from pinned memory.
+its batch (zero blobs, generator points): below config.canon_batch to the
+next power of two, from it on to a multiple of it (Kzg._canon), so the
+device sees a fixed set of shapes and a small batch runs on few lanes.
+Host data reaches a CUDA device by asynchronous copies from pinned memory.
 
 Each operation's device work is one program of kzg/protocol.py a batch,
-or a chunk of commit_chunk blobs: verify_blob_batch, verify_kzg,
+or a chunk of canon_batch blobs: verify_blob_batch, verify_kzg,
 validate_g1, commit_chunk and prove_chunk (with the windowed commit,
 comb_h = 0: commit_scan and prove_scan).  On a CUDA device each runs as
 CUDA graphs of this Kzg's graph cache (graphs.py), captured at the first
@@ -53,9 +54,6 @@ _G1_GEN_BYTES = host.g1_compress(host.G1_GEN)
 class Kzg:
     """The library handle: a trusted setup on one device."""
 
-    #: blobs per commit: a larger batch commits in chunks of this many
-    commit_chunk = 64
-
     def __init__(self, setup: TorchSetup):
         self.setup = setup
         self.config = setup.config
@@ -70,6 +68,11 @@ class Kzg:
         self._graphs = graphs.GraphCache(self.device) if cuda else None
         self._verify_graphs = (graphs.VerifyBatchGraphs(setup.roots, setup.tau2, self._graphs)
                                if cuda else None)
+        #: the padding's count, by program name ("verify_batch", "commit",
+        #: "prove", "validate_g1"): [lanes given, lanes run], summed over
+        #: the calls since construction
+        self.lanes: dict[str, list[int]] = {}
+        self._lanes_lock = threading.Lock()
 
     @classmethod
     def load_json(
@@ -81,9 +84,19 @@ class Kzg:
         return cls(TorchSetup.load_json(path, config, device, cache_dir))
 
     def _canon(self, n: int) -> int:
-        """The padded batch size: the next multiple of config.canon_batch."""
+        """The padded batch size of n items: from config.canon_batch on, the
+        next multiple of it; below it, the next power of two (1 for n = 0),
+        capped at canon_batch.  So a block's 6 blobs run on 8 lanes."""
         cb = self.config.canon_batch
-        return cb * -(-max(n, 1) // cb)
+        if n >= cb:
+            return cb * -(-n // cb)
+        return min(1 << (max(n, 1) - 1).bit_length(), cb)
+
+    def _count_lanes(self, name: str, given: int, run: int) -> None:
+        with self._lanes_lock:
+            counts = self.lanes.setdefault(name, [0, 0])
+            counts[0] += given
+            counts[1] += run
 
     def _challenge_digests(self, joined_blobs: bytes, joined_comms: bytes, n: int):
         """Per-blob Fiat-Shamir digests H(domain || n || blob_i || comm_i)."""
@@ -160,13 +173,17 @@ class Kzg:
 
     # -- device programs --------------------------------------------------------
 
-    def _chunks(self, n: int) -> tuple[int, range]:
-        """(size, starts) of the device programs of an n-item commit, proof
-        or validation: one program of the padded batch size up to
-        commit_chunk items, else programs of commit_chunk items (the last
-        one padded); each takes `size` items from its start."""
-        size = min(self._canon(n), self.commit_chunk)
-        return size, range(0, n, size)
+    def _chunks(self, name: str, n: int) -> tuple[int, range]:
+        """(size, starts) of the device programs `name` of an n-item commit,
+        proof or validation: one program of the padded batch size below
+        config.canon_batch items, else programs of canon_batch items (the
+        last one padded); each takes `size` items from its start.  Counts
+        the lanes (Kzg.lanes)."""
+        size = min(self._canon(n), self.config.canon_batch)
+        starts = range(0, n, size)
+        if n:
+            self._count_lanes(name, n, len(starts) * size)
+        return size, starts
 
     def _table(self):
         """The comb table, built at the first call."""
@@ -230,7 +247,7 @@ class Kzg:
         """Host checks and the commit programs, one a chunk; returns the
         (ok, commitment bytes) pair of each chunk, not yet read back."""
         self._check_blob_lengths(blobs)
-        size, starts = self._chunks(len(blobs))
+        size, starts = self._chunks("commit", len(blobs))
         if not starts:
             return []
         (rows,) = protocol.to_device([self._blob_rows(blobs, len(starts) * size)], self.device)
@@ -254,7 +271,7 @@ class Kzg:
         z_vals (ints), one a chunk; returns each chunk's (ok, y plain, proof
         bytes), not yet read back."""
         n = len(blobs)
-        size, starts = self._chunks(n)
+        size, starts = self._chunks("prove", n)
         if not starts:
             return []
         rows = len(starts) * size
@@ -297,7 +314,7 @@ class Kzg:
         with generator bytes, one a chunk; returns each chunk's (3, size)
         masks, not yet read back."""
         n = len(points)
-        size, starts = self._chunks(n)
+        size, starts = self._chunks("validate_g1", n)
         if not starts:
             return []
         joined = b"".join(bytes(p) for p in points) + _G1_GEN_BYTES * (len(starts) * size - n)
@@ -440,6 +457,7 @@ class Kzg:
         # (valid, in the subgroup): they add the identity to every lincomb
         nc = self._canon(n)
         pad = nc - n
+        self._count_lanes("verify_batch", n, nc)
         joined_blobs = b"".join(bytes(b) for b in blobs)
         joined_comms = b"".join(bytes(c) for c in commitments)
         joined_proofs = b"".join(bytes(p) for p in proofs)

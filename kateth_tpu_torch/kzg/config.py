@@ -19,9 +19,11 @@ class KzgConfig:
     #: planes, built on the device at the first commit); 0 selects the
     #: windowed Pippenger instead
     comb_h: int = 12
-    #: canonical batch quantum: every batch pads up to a multiple of this
-    #: with weight-0, zero-blob, generator-point lanes, so the device path
-    #: sees a fixed set of shapes
+    #: canonical batch quantum: a batch of at least this many pads up to a
+    #: multiple of it, a smaller one to the next power of two (capped at
+    #: it), with weight-0, zero-blob, generator-point lanes, so the device
+    #: path sees a fixed set of shapes; commits, proofs and validations
+    #: run in programs of at most this many items
     canon_batch: int = 64
 
     def __post_init__(self):

@@ -8,6 +8,7 @@ verdicts) are held against the pure-Python oracle, because the JAX fused
 verification and pairing take minutes of XLA compile on this CPU.
 """
 
+import dataclasses
 import json
 import random
 
@@ -106,14 +107,22 @@ def test_challenges_match_jax(kzg, jax_setup, triples):
 
 def test_staging_matches_jax(jax_setup, triples):
     """The padded device arguments of the fused program, at the JAX
-    package's batch quantum of 64."""
+    package's batch quantum of 64: the port pads 3 triples to 4 lanes, the
+    JAX package to 64, and each of the JAX package's pad lanes is the
+    port's pad lane."""
     arrays = [np.asarray(getattr(jax_setup, k)) for k in FIELDS]
     port = Kzg(TorchSetup.from_arrays(arrays, KzgConfig(n=N, g2_len=2), "cpu"))
     n, got = port._verify_batch_stage(*triples)
     jn, want = JaxKzg(jax_setup)._verify_batch_stage(*triples)
     assert n == jn == 3
-    flat_got = list(got[:7]) + list(got[7])
-    flat_want = list(want[:7]) + list(want[7])
+    assert port.lanes == {"verify_batch": [3, 4]}
+    for g, w in zip(got[:6], want[:6]):
+        g, w = g.numpy().astype(np.int64), np.asarray(w).astype(np.int64)
+        assert g.shape[0] == 4 and w.shape[0] == 64
+        assert np.array_equal(g, w[:4])
+        assert (w[4:] == g[3]).all()
+    flat_got = [got[6]] + list(got[7])
+    flat_want = [want[6]] + list(want[7])
     for g, w in zip(flat_got, flat_want):
         assert np.array_equal(g.numpy().astype(np.int64), np.asarray(w).astype(np.int64))
 
@@ -172,6 +181,28 @@ def test_verdicts_match_oracle(kzg, osetup, triples):
     assert osetup.verify_blob_proof_batch(blobs, cms, proofs) is True
     assert osetup.verify_blob_proof_batch(blobs, cms, swapped) is False
     assert osetup.verify_blob_proof(blobs[0], cms[0], proofs[1]) is False
+
+
+@pytest.mark.parametrize("n, valid", [(1, True), (3, False), (5, False), (9, True)])
+def test_small_batches_verify_and_convert(kzg, osetup, n, valid):
+    """At a batch quantum of 8, 1, 3 and 5 triples verify on 1, 4 and 8
+    lanes and 9 on 16, with the oracle's verdict (a proof swapped for
+    another blob's is refused); blobs_to_coefficients of the blobs gives,
+    byte for byte, what the same Kzg gives when it pads to a multiple of
+    8."""
+    k = Kzg(dataclasses.replace(kzg.setup, config=KzgConfig(n=N, g2_len=2, canon_batch=8)))
+    blobs = [blob_to_bytes([rng.randrange(of.R) for _ in range(N)]) for _ in range(n)]
+    cms = [osetup.blob_to_commitment(b) for b in blobs]
+    proofs = [osetup.blob_proof(b, c) for b, c in zip(blobs, cms)]
+    if not valid:
+        proofs[0], proofs[1] = proofs[1], proofs[0]
+    assert osetup.verify_blob_proof_batch(blobs, cms, proofs) is valid
+    assert k.verify_blob_kzg_proof_batch(blobs, cms, proofs) is valid
+    padded = {1: 1, 3: 4, 5: 8, 9: 16}[n]
+    assert k.lanes == {"verify_batch": [n, padded]}
+    coeffs = k.blobs_to_coefficients(blobs)
+    k._canon = lambda m: 8 * -(-max(m, 1) // 8)
+    assert coeffs == k.blobs_to_coefficients(blobs)
 
 
 class TestErrors:

@@ -3,8 +3,9 @@
 the CPU at n = 8 with a batch quantum of 2 and comb_h = 4, which runs the
 same programs eagerly: the errors when two inputs of one call are bad at
 once, the one the JAX package raises first with its message
-(kateth_tpu/kzg/api.py), and a batch split into chunks of commit_chunk
-blobs giving what one program gives.
+(kateth_tpu/kzg/api.py), also at a batch padded to a power of two, and a
+batch split into programs of canon_batch blobs giving what one program
+gives.
 
 Each operation now runs as whole device programs (kzg/protocol.py), which
 compute everything before any mask is read, so an error the host can decide
@@ -26,6 +27,7 @@ whole.  tests/test_torch_prove.py holds the same operations' outputs
 against the oracle with every kernel's plain version.
 """
 
+import dataclasses
 import random
 
 import numpy as np
@@ -107,6 +109,14 @@ def kzg(osetup):
         yield k
 
 
+def with_quantum(kzg, canon_batch: int) -> Kzg:
+    """A Kzg on kzg's setup and comb table with another batch quantum."""
+    cfg = dataclasses.replace(kzg.config, canon_batch=canon_batch)
+    k = Kzg(dataclasses.replace(kzg.setup, config=cfg))
+    k._comb_table = kzg._comb_table
+    return k
+
+
 def rand_blob() -> bytes:
     return blob_to_bytes([rng.randrange(of.R) for _ in range(N)])
 
@@ -162,23 +172,44 @@ def test_verify_kzg_proof_proof_before_commitment(kzg, osetup):
     assert raised(kzg.verify_kzg_proof, proof, off_curve(), z, y) == NOT_ON_CURVE
 
 
+@pytest.mark.parametrize("op, error, lanes", [
+    ("compute_blob_kzg_proofs", NOT_ON_CURVE, {"validate_g1": [3, 4], "prove": [3, 4]}),
+    ("verify_blob_kzg_proof_batch", BLOB_ELEMENT, {"verify_batch": [3, 4]}),
+])
+def test_padded_batch_error_order(kzg, osetup, op, error, lanes):
+    """Three blobs, padded to four lanes at a batch quantum of 8, with a
+    commitment off the curve and a non-canonical blob element: the blob
+    proofs raise the commitment's error (its masks come first), the batch
+    verification the blob's (blobs, then commitments, then proofs)."""
+    k = with_quantum(kzg, 8)
+    blobs = [rand_blob() for _ in range(3)]
+    cms = [osetup.blob_to_commitment(b) for b in blobs]
+    proofs = [osetup.blob_proof(b, c) for b, c in zip(blobs, cms)]
+    blobs[2], cms[1] = bad_element(blobs[2]), off_curve()
+    args = (blobs, cms) if op == "compute_blob_kzg_proofs" else (blobs, cms, proofs)
+    assert raised(getattr(k, op), *args) == error
+    assert k.lanes == lanes
+
+
 def test_chunks_give_what_one_program_gives(kzg, osetup, monkeypatch):
-    """Five blobs in programs of two (the last one padded) give the proofs,
-    ys, commitments and validation masks of one program of six, blob by
-    blob.  K2 gets a cheap stand-in too: only the equality matters here."""
+    """Five blobs in programs of two (a batch quantum of 2, the last one
+    padded) give the proofs, ys, commitments and validation masks of one
+    program of eight (a quantum of 8), blob by blob.  K2 gets a cheap
+    stand-in too: only the equality matters here."""
     monkeypatch.setattr(cuda_mont, "pow_const", lambda spec, a, e: L.add(spec, a, a))
     blobs = [rand_blob() for _ in range(5)]
     zs = [of.fr_to_be_bytes(rng.randrange(of.R)) for _ in blobs]
     cms = [osetup.blob_to_commitment(b) for b in blobs]
 
-    def run():
-        masks = torch.cat(kzg._validate_dispatch(cms), 1)[:, :5]
-        return kzg.compute_kzg_proofs(blobs, zs), kzg.blobs_to_kzg_commitments(blobs), masks
+    def run(k):
+        masks = torch.cat(k._validate_dispatch(cms), 1)[:, :5]
+        return k.compute_kzg_proofs(blobs, zs), k.blobs_to_kzg_commitments(blobs), masks
 
-    (proofs, ys), commitments, masks = run()
-    monkeypatch.setattr(kzg, "commit_chunk", 2)
+    one = with_quantum(kzg, 8)
+    (proofs, ys), commitments, masks = run(one)
+    assert [len(m[0]) for m in one._validate_dispatch(cms)] == [8]
     assert [len(m[0]) for m in kzg._validate_dispatch(cms)] == [2, 2, 2]
-    (c_proofs, c_ys), c_commitments, c_masks = run()
+    (c_proofs, c_ys), c_commitments, c_masks = run(kzg)
     assert (c_proofs, c_ys, c_commitments) == (proofs, ys, commitments)
     assert torch.equal(c_masks, masks)
     assert [len(x) for x in (proofs, ys, commitments)] == [5] * 3

@@ -40,9 +40,9 @@ def arrays(osetup):
     return [np.asarray(getattr(js, k)) for k in FIELDS]
 
 
-def make_kzg(arrays, h: int) -> Kzg:
-    """The port on CPU with a batch quantum of 2."""
-    cfg = KzgConfig(n=N, g2_len=2, canon_batch=2, comb_h=h)
+def make_kzg(arrays, h: int, canon_batch: int = 2, msm_window: int = 8) -> Kzg:
+    """The port on CPU, by default with a batch quantum of 2."""
+    cfg = KzgConfig(n=N, g2_len=2, canon_batch=canon_batch, comb_h=h, msm_window=msm_window)
     return Kzg(TorchSetup.from_arrays(arrays, cfg, "cpu"))
 
 
@@ -88,14 +88,46 @@ def test_single_entry_points_match_oracle(kzg, osetup):
 
 
 def test_commit_in_chunks_and_lazy_table(arrays, osetup):
-    """Three blobs commit in chunks of two (the last one padded), and the
-    comb table is built at the first commit, not at construction."""
+    """Three blobs commit in chunks of two, the batch quantum (the last one
+    padded), and the comb table is built at the first commit, not at
+    construction."""
     kzg = make_kzg(arrays, 4)
-    kzg.commit_chunk = 2
     assert kzg._comb_table is None
     blobs = [rand_blob() for _ in range(3)]
     assert kzg.blobs_to_kzg_commitments(blobs) == [osetup.blob_to_commitment(b) for b in blobs]
     assert kzg._comb_table[0].shape == (N << 4, 24)
+    assert kzg.lanes == {"commit": [3, 4]}
+
+
+#: blobs given -> lanes run at a batch quantum of 8: the next power of two
+#: below it, programs of 8 from it on
+SMALL_BATCHES = {1: 1, 3: 4, 5: 8, 9: 16}
+
+
+def check_small_batch(kzg, osetup, n: int, kzg_proofs: bool) -> None:
+    """n blobs through a Kzg with a batch quantum of 8 give the oracle's
+    commitments and blob proofs (and with kzg_proofs its proofs and ys at
+    random points), and Kzg.lanes counts each program's lanes."""
+    blobs = [rand_blob() for _ in range(n)]
+    cms = [osetup.blob_to_commitment(b) for b in blobs]
+    assert kzg.blobs_to_kzg_commitments(blobs) == cms
+    assert kzg.compute_blob_kzg_proofs(blobs, cms) == [osetup.blob_proof(b, c)
+                                                       for b, c in zip(blobs, cms)]
+    run = SMALL_BATCHES[n]
+    lanes = {"commit": [n, run], "validate_g1": [n, run], "prove": [n, run]}
+    if kzg_proofs:
+        zs = [of.fr_to_be_bytes(rng.randrange(of.R)) for _ in blobs]
+        proofs, ys = kzg.compute_kzg_proofs(blobs, zs)
+        assert list(zip(proofs, ys)) == [osetup.proof(b, z) for b, z in zip(blobs, zs)]
+        lanes["prove"] = [2 * n, 2 * run]
+    assert kzg.lanes == lanes
+
+
+@pytest.mark.parametrize("n", sorted(SMALL_BATCHES))
+def test_small_batches_match_oracle(arrays, osetup, n):
+    """1, 3 and 5 blobs run on 1, 4 and 8 lanes, 9 blobs on two programs
+    of 8, through the comb, byte for byte as the oracle has them."""
+    check_small_batch(make_kzg(arrays, 4, canon_batch=8), osetup, n, kzg_proofs=True)
 
 
 class TestErrors:
